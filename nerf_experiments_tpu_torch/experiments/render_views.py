@@ -1,0 +1,172 @@
+"""Render full views from a checkpoint + report split PSNR (the serving path).
+
+Loads a checkpoint written by the port's `CheckpointManager`, re-renders
+whole images (val/test through the Kabsch gauge, train through the learned
+extrinsics), writes PNGs, and prints per-image + mean PSNR as one JSON line.
+On a CUDA device the flagship configs render through the hand-written
+kernels (`ops/train_megakernel.py:flagship_render`, and the compositing
+kernel for a proposal stage).
+
+    python -m nerf_experiments_tpu_torch.experiments.render_views \\
+        --ckpt_dir runs/latest/ckpt --scene_path synthetic --split test
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+from nerf_experiments_tpu_torch.cameras import calibration
+from nerf_experiments_tpu_torch.experiments import common, run_barf
+from nerf_experiments_tpu_torch.ops.metrics import psnr
+from nerf_experiments_tpu_torch.systems import barf as barf_sys
+from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+
+# run_barf config flags needed to rebuild the same model
+_RUN_BARF_ARGS = (
+    "--camera_origin_noise_sigma", "--camera_rotation_noise_sigma",
+    "--start_blur_sigma", "--n_blur_sigmas", "--samples_per_ray",
+    "--samples_per_ray_proposal", "--hidden_dim", "--n_hidden",
+    "--n_segments", "--fourier_levels_pos", "--fourier_levels_dir",
+    "--proposal_hidden_dim", "--proposal_n_hidden",
+    "--occ_grid_resolution", "--occ_grid_coarse",
+    "--occ_grid_update_every", "--occ_grid_aabb_half",
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--ckpt_dir", type=str, required=True)
+    p.add_argument("--ckpt_step", type=int, default=None)
+    p.add_argument("--entry", choices=["barf", "mip", "bip", "ingp"], default="barf",
+                   help="which experiment entry built the checkpoint; only "
+                        "'barf' is ported so far")
+    p.add_argument("--ingp_n_levels", type=int, default=16)
+    p.add_argument("--ingp_n_features", type=int, default=2)
+    p.add_argument("--ingp_table_size", type=int, default=2**16)
+    p.add_argument("--ingp_resolution_max", type=int, default=512)
+    p.add_argument("--ingp_encoder", choices=("fused", "matmul", "rolled"),
+                   default="fused")
+    p.add_argument("--ingp_weight_decay", type=float, default=0.0)
+    p.add_argument("--split", choices=["train", "val", "test"], default="test")
+    p.add_argument("--serve_block", type=int, default=1,
+                   help="block-coarse serving; only 1 (the standard path) is "
+                        "ported so far")
+    p.add_argument("--n_images", type=int, default=None, help="limit rendered views")
+    p.add_argument("--chunk", type=int, default=2048)
+    p.add_argument("--device", type=str,
+                   default="cuda" if torch.cuda.is_available() else "cpu")
+    defaults = run_barf.parse_args([])
+    for flag in _RUN_BARF_ARGS:
+        name = flag.lstrip("-")
+        p.add_argument(flag, type=type(getattr(defaults, name)),
+                       default=getattr(defaults, name))
+    common.add_common_args(p)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.entry != "barf":
+        raise NotImplementedError(
+            f"--entry {args.entry} is not ported yet: the Mip/BIP encodings and "
+            "the hash grid come with later PRs of the port (ROADMAP A10, A12)")
+    if args.serve_block > 1:
+        raise NotImplementedError(
+            "--serve_block > 1 (render_block_coarse) is not ported yet: it comes "
+            "with the block-coarse PR of the port (ROADMAP A9)")
+    barf_args = run_barf.parse_args([
+        "--scene_path", args.scene_path, "--image_size", str(args.image_size),
+        "--batch_size", str(args.batch_size),
+        "--camera_origin_noise_sigma", str(args.camera_origin_noise_sigma),
+        "--camera_rotation_noise_sigma", str(args.camera_rotation_noise_sigma),
+        "--samples_per_ray", str(args.samples_per_ray),
+        "--samples_per_ray_proposal", str(args.samples_per_ray_proposal),
+        "--hidden_dim", str(args.hidden_dim), "--n_hidden", str(args.n_hidden),
+        "--n_segments", str(args.n_segments),
+        "--proposal_hidden_dim", str(args.proposal_hidden_dim),
+        "--proposal_n_hidden", str(args.proposal_n_hidden),
+        "--occ_grid_resolution", str(args.occ_grid_resolution),
+        "--occ_grid_coarse", str(args.occ_grid_coarse),
+        "--occ_grid_update_every", str(args.occ_grid_update_every),
+        "--occ_grid_aabb_half", str(args.occ_grid_aabb_half),
+        "--checkpoint_every_n_epochs", "0",
+        "--seed", str(args.seed), "--out_dir", args.out_dir,
+    ] + (["--bf16"] if args.bf16 else []))
+    return _render(args, run_barf.build(barf_args, device=args.device))
+
+
+def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
+                 pixel_width: float, chunk: int, device, alpha_pos, alpha_dir) -> np.ndarray:
+    """One view's rays (HW, 3) through the gauge and `forward` in chunks of
+    `chunk` rays -> clipped rgb (HW, 3)."""
+    fused = barf_sys.use_fused_render(cfg, device)
+    out = np.empty((origs.shape[0], 3), np.float32)
+    for lo in range(0, origs.shape[0], chunk):
+        hi = min(lo + chunk, origs.shape[0])
+        o, d = calibration.validation_transform_rays(
+            torch.as_tensor(origs[lo:hi], device=device),
+            torch.as_tensor(dirs[lo:hi], device=device), gauge)
+        pw = torch.full((hi - lo, 1), pixel_width, device=device)
+        rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
+                                  stratified=False, fused=fused)
+        out[lo:hi] = torch.clamp(rgb, 0.0, 1.0).cpu().numpy()
+    return out
+
+
+def _render(args, exp):
+    mgr = CheckpointManager(args.ckpt_dir)
+    params = mgr.restore(exp.params, step=args.ckpt_step)
+    device = torch.device(args.device)
+
+    dm = exp.dm
+    if args.split == "test":
+        dm.setup("test")
+    dataset = {"train": dm.dataset_train, "val": dm.dataset_val,
+               "test": dm.dataset_test}[args.split]
+    if dataset is None:
+        raise ValueError(f"split {args.split} not available")
+
+    raw = torch.as_tensor(dm.dataset_train.camera_origins, device=device)
+    noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy, device=device)
+    # the gauge depends only on the parameters: computed once per checkpoint
+    with torch.no_grad():
+        gauge = barf_sys.val_gauge(params, raw, noisy)
+
+    # validation uses fully unlocked encodings
+    a_pos = float(exp.cfg.radiance.position_encoder.levels)
+    a_dir = 4.0
+
+    h, w = dataset.image_height, dataset.image_width
+    hw = h * w
+    results = []
+    os.makedirs(os.path.join(args.out_dir, "renders"), exist_ok=True)
+    n_images = min(args.n_images or dataset.n_images, dataset.n_images)
+    for i in range(n_images):
+        out = render_image(params, exp.cfg, dataset.ray_origins[i], dataset.ray_directions[i],
+                           gauge, float(dataset.pixel_width), args.chunk, device,
+                           a_pos, a_dir)
+        target = dataset.images[i, :, :, -1, :].reshape(hw, 3)
+        m = float(np.mean((out - target) ** 2))
+        name = dataset.image_index_to_name[i]
+        results.append({"image": name, "psnr": float(psnr(torch.tensor(m)))})
+        from PIL import Image
+
+        Image.fromarray((out.reshape(h, w, 3) * 255).astype(np.uint8)).save(
+            os.path.join(args.out_dir, "renders", f"{args.split}_{name}.png"))
+
+    mean_psnr = float(np.mean([r["psnr"] for r in results]))
+    summary = {"split": args.split, "mean_psnr": mean_psnr, "per_image": results,
+               "ckpt_step": mgr.latest_step() if args.ckpt_step is None else args.ckpt_step,
+               "serve_block": args.serve_block}
+    print(json.dumps(summary))
+    with open(os.path.join(args.out_dir, "render_summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

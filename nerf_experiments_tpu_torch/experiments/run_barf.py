@@ -1,0 +1,184 @@
+"""BARF: joint NeRF + camera-pose self-calibration (flagship entry point).
+
+CLI parity with `barf/run_barf.py:23-198` and the JAX package's `run_barf`:
+pose noise sigmas, blur-sigma ladder, seed; BARF positional encodings (10/4
+levels, scale 1, identity prepended) annealed between steps 20k and 100k;
+NerfModel 4x256, 2 segments, delayed direction; 128 samples/ray,
+equidistant sampling with offset -1.
+
+`build` assembles the config, the data module and seeded initial
+parameters. Training (`main`) comes with the training slice of the port.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from nerf_experiments_tpu_torch.data import blender
+from nerf_experiments_tpu_torch.encodings.fourier import Barf
+from nerf_experiments_tpu_torch.experiments import common
+from nerf_experiments_tpu_torch.models import nerf_mlp
+from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--camera_origin_noise_sigma", type=float, default=0.15)
+    p.add_argument("--camera_rotation_noise_sigma", type=float, default=0.15)
+    p.add_argument("--start_blur_sigma", type=float, default=0.0)
+    p.add_argument("--n_blur_sigmas", type=int, default=10)
+    p.add_argument("--optimize_camera", action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--samples_per_ray", type=int, default=128)
+    p.add_argument("--samples_per_ray_proposal", type=int, default=0)
+    # size of the dedicated proposal (coarse) net. 0 = same architecture as
+    # the radiance net (the reference's coarse/fine arrangement,
+    # `model_interpolation.py:93-104`). A small density-oriented net (e.g.
+    # 64x1) is the fast hierarchical recipe (`garf/model_proposal.py:10-77`
+    # uses a smaller coarse net too) — the north-star throughput config.
+    p.add_argument("--proposal_hidden_dim", type=int, default=0)
+    p.add_argument("--proposal_n_hidden", type=int, default=1)
+    # occupancy-grid guided sampling (the nerfacc OccGridEstimator analog;
+    # not ported yet): replaces the proposal-net coarse stage
+    p.add_argument("--occ_grid_resolution", type=int, default=0,
+                   help="cells per axis; 0 = off")
+    p.add_argument("--occ_grid_coarse", type=int, default=64,
+                   help="coarse grid-lookup bins per ray")
+    p.add_argument("--occ_grid_update_every", type=int, default=16)
+    p.add_argument("--occ_grid_aabb_half", type=float, default=2.0)
+    p.add_argument("--lr_decay_end_step", type=int, default=200_000)
+    # net LR start (reference default 5e-4, `barf/run_barf.py:48`); exposed
+    # for large-batch LR-scaling studies (stop stays start/50)
+    p.add_argument("--learning_rate", type=float, default=5e-4)
+    # camera-group optimizer knobs (defaults = the reference's recipe,
+    # `barf/run_barf.py:44-59`). --camera_adam_eps is the recipe that fixed
+    # GARF joint calibration (RESULTS.md): a large eps makes small camera
+    # updates gradient-proportional instead of Adam-sign random steps.
+    p.add_argument("--camera_lr", type=float, default=1e-3)
+    p.add_argument("--camera_lr_stop", type=float, default=1e-5)
+    p.add_argument("--camera_adam_eps", type=float, default=None)
+    p.add_argument("--hidden_dim", type=int, default=256)
+    p.add_argument("--n_hidden", type=int, default=4)
+    p.add_argument("--n_segments", type=int, default=2)
+    p.add_argument("--delayed_direction", action="store_true", default=True)
+    p.add_argument("--no-delayed_direction", dest="delayed_direction", action="store_false")
+    p.add_argument("--delayed_density", action="store_true", default=False)
+    p.add_argument("--fourier_levels_pos", type=int, default=10)
+    p.add_argument("--fourier_levels_dir", type=int, default=4)
+    p.add_argument("--checkpoint_every_n_epochs", type=float, default=1.0,
+                   help="0 disables checkpointing")
+    p.add_argument("--log_every_n_steps", type=int, default=50)
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="resume from the latest checkpoint in out_dir/ckpt")
+    p.add_argument("--alpha_decay_start_step", type=int, default=20_000)
+    p.add_argument("--alpha_decay_end_step", type=int, default=100_000)
+    p.add_argument("--fused_kernel", action="store_true", default=False,
+                   help="run the step through the fused training kernel "
+                        "(flagship configs; comes with the training slice)")
+    p.add_argument("--train_coarse_block", type=int, default=1,
+                   help="block-coarse training: share the coarse stage "
+                        "per block of N raster-consecutive rays (not ported yet)")
+    p.add_argument("--image_log_period_epochs", type=float, default=None,
+                   help="fixed image-reconstruction log period in epochs "
+                        "(default: the reference's 0.002->1/24 taper)")
+    common.add_common_args(p)
+    return p.parse_args(argv)
+
+
+@dataclasses.dataclass
+class BarfExperiment:
+    cfg: barf_sys.BarfConfig
+    dm: blender.DataModule
+    params: barf_sys.BarfParams
+
+
+def build(args, device=None) -> BarfExperiment:
+    """Config, data module (train + val loaded) and initial parameters drawn
+    from a generator seeded with --seed."""
+    if args.mesh:
+        raise NotImplementedError("--mesh (multi-device training) is not ported yet "
+                                  "(ROADMAP A13)")
+    if args.occ_grid_resolution > 0:
+        raise NotImplementedError("the occupancy grid is not ported yet (ROADMAP A9)")
+    if args.train_coarse_block > 1:
+        raise NotImplementedError("block-coarse training is not ported yet (ROADMAP A9)")
+    scene = common.resolve_scene(args.scene_path, args.image_size)
+    sigmas = common.blur_sigmas_from_start(args.start_blur_sigma, args.n_blur_sigmas)
+
+    dm = blender.DataModule(
+        scene_path=scene,
+        image_width=args.image_size,
+        image_height=args.image_size,
+        space_transform_scale=1.0,
+        space_transform_translate=np.zeros(3),
+        rotation_noise_sigma=args.camera_rotation_noise_sigma,
+        translation_noise_sigma=args.camera_origin_noise_sigma,
+        camera_noise_seed=args.seed,
+        gaussian_blur_sigmas=sigmas,
+        validation_fraction=0.06,
+        validation_fraction_shuffle=1234,
+    )
+    dm.setup("fit")
+
+    def iter_to_epoch(it):
+        return it * args.batch_size / (dm.n_training_images * args.image_size**2)
+
+    enc_kwargs = dict(
+        alpha_start=0.0,
+        alpha_increase_start_epoch=iter_to_epoch(args.alpha_decay_start_step),
+        alpha_increase_end_epoch=iter_to_epoch(args.alpha_decay_end_step),
+        include_identity=True,
+        scale=1.0,
+    )
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+
+    def mlp(n_hidden, hidden_dim, n_segments):
+        return nerf_mlp.NerfMLPConfig(
+            position_encoder=Barf(levels=args.fourier_levels_pos, **enc_kwargs),
+            direction_encoder=Barf(levels=args.fourier_levels_dir, **enc_kwargs),
+            n_hidden=n_hidden, hidden_dim=hidden_dim,
+            delayed_direction=args.delayed_direction,
+            delayed_density=args.delayed_density, n_segments=n_segments,
+            learning_rate_start=args.learning_rate,
+            learning_rate_stop=args.learning_rate / 50,
+            learning_rate_decay_end=args.lr_decay_end_step,
+            compute_dtype=compute_dtype,
+        )
+
+    proposal = None
+    if args.samples_per_ray_proposal > 0 and args.proposal_hidden_dim > 0:
+        proposal = mlp(args.proposal_n_hidden, args.proposal_hidden_dim, 1)
+
+    cfg = barf_sys.BarfConfig(
+        radiance=mlp(args.n_hidden, args.hidden_dim, args.n_segments),
+        proposal=proposal,
+        n_training_images=dm.n_training_images,
+        near=2.0, far=8.0,
+        samples_per_ray_radiance=args.samples_per_ray,
+        samples_per_ray_proposal=args.samples_per_ray_proposal,
+        uniform_sampling_strategy="equidistant",
+        uniform_sampling_offset_size=-1.0,
+        optimize_camera=args.optimize_camera,
+        camera_learning_rate_start=args.camera_lr,
+        camera_learning_rate_stop=args.camera_lr_stop,
+        camera_learning_rate_decay_end=args.lr_decay_end_step,
+        camera_adam_eps=args.camera_adam_eps,
+        max_gaussian_sigma=args.start_blur_sigma,
+        gaussian_blur_sigmas=sigmas,
+    )
+    generator = torch.Generator().manual_seed(args.seed)
+    params = barf_sys.init(generator, cfg).to(device)
+    return BarfExperiment(cfg=cfg, dm=dm, params=params)
+
+
+def main(argv=None):
+    parse_args(argv)
+    raise NotImplementedError(
+        "training is not ported yet: the trainer, the optimizer and the "
+        "backward kernels come with the training slice (ROADMAP A5-A6)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,114 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All sources in `nerf_experiments_tpu_torch/csrc/` are compiled by `nvcc` for
+Hopper (`sm_90a`) into one shared library with a plain C interface, loaded
+with `ctypes`. The build happens at first use, into `build/kernels/` at the
+repository root; the file name carries a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns `cudaGetLastError()`; `check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argument types of every C entry point (pointers and the stream as void*)
+SIGNATURES = {
+    # dens, dists, tmid (nullable), colors, weights, trans, stats, n, s,
+    # density_scale, stream
+    "netpu_render_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # origs, dirs, t_start, t_end, w_ptrs, b_ptrs, n_layers, bf16, n_rays, S,
+    # n_hidden, D, C, levels_pos, levels_dir, scale, alpha_pos, alpha_dir,
+    # density_scale, out, weights_out (nullable), stream
+    "netpu_flagship_render": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    path: Path
+    seconds: float  # 0.0 when an existing build was reused
+    log: str        # nvcc's output (-Xptxas -v: registers, shared memory, spills)
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+        "of nerf_experiments_tpu_torch are compiled at first use and need the "
+        "CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build() -> BuildResult:
+    """Compile csrc/*.cu into build/kernels/libnetpu_kernels_<hash>.so."""
+    cu, headers = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + headers:
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    out = BUILD_DIR / f"libnetpu_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return BuildResult(out, 0.0, "")
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    out.with_suffix(".log").write_text(log)
+    return BuildResult(out, seconds, log)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use, with argtypes set."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.netpu_error_string.argtypes = [ctypes.c_int]
+    lib.netpu_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if code != 0:
+        msg = library().netpu_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")

@@ -1,0 +1,116 @@
+"""t-sampling along rays: stratified/equidistant init + inverse-CDF resampling.
+
+Reference semantics:
+  * `barf/model_interpolation.py:135-180` `_sample_t_stratified_uniform`:
+    n equal bins over [near, far], one uniform sample per bin
+    ("stratified_uniform") or the left edges ("equidistant"); optionally the
+    whole comb shifted by a shared uniform offset in
+    [0, interval * offset_size) (offset_size may be negative).
+  * `:114-132` `_get_intervals`: t_start = t, t_end = next t (last = far).
+  * `:193-277` `_sample_t_pdf_weighted`, replaced (as in the JAX package) by
+    deterministic inverse-CDF sampling with evenly spaced quantiles and
+    linear in-bin placement.
+
+Randomness comes from an explicit `torch.Generator`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def intervals_from_t(t: torch.Tensor, far: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t (N, S) sorted -> (t_start, t_end) with t_end[-1] = far."""
+    t_end = torch.cat([t[:, 1:], torch.full_like(t[:, :1], far)], dim=1)
+    return t.contiguous(), t_end
+
+
+def sample_stratified(
+    generator: Optional[torch.Generator],
+    n_rays: int,
+    n_samples: int,
+    near: float,
+    far: float,
+    strategy: str = "stratified_uniform",
+    offset_size: float = 0.0,
+    device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform-bin coarse sampling. Returns (t_start, t_end), each (N, S)."""
+    interval = (far - near) / n_samples
+    t = torch.linspace(near, far - interval, n_samples, device=device)
+    t = t.expand(n_rays, n_samples)
+    if strategy == "stratified_uniform":
+        if generator is None:
+            raise ValueError("stratified_uniform requires a generator")
+        t = t + torch.rand((n_rays, n_samples), generator=generator,
+                           device=device) * interval
+    elif strategy != "equidistant":
+        raise ValueError(f"unknown sampling strategy {strategy!r}")
+
+    if offset_size != 0.0:
+        if generator is None:
+            raise ValueError("offset_size != 0 requires a generator")
+        t = t + torch.rand((n_rays, 1), generator=generator,
+                           device=device) * interval * offset_size
+    return intervals_from_t(t, far)
+
+
+def t_query(t_start: torch.Tensor, t_end: torch.Tensor, strategy: str = "middle") -> torch.Tensor:
+    """Integration query point per bin (`_get_t_query:279-286`)."""
+    if strategy == "left":
+        return t_start
+    if strategy == "middle":
+        return (t_start + t_end) / 2.0
+    raise ValueError(f"unknown integration strategy {strategy!r}")
+
+
+def sample_pdf(
+    t_edges: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    generator: Optional[torch.Generator] = None,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Inverse-CDF resampling from a piecewise-constant PDF over bins.
+
+    t_edges (N, B+1) bin edges; weights (N, B) nonnegative bin masses.
+    Returns sorted t samples (N, n_samples): evenly spaced quantiles without
+    a generator, stratified-jittered quantiles with one.
+    """
+    n_rays, n_bins = weights.shape
+    w = weights + eps
+    pdf = w / torch.sum(w, dim=-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(w[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
+
+    steps = torch.arange(n_samples, dtype=w.dtype, device=w.device)
+    if generator is None:
+        u = ((steps + 0.5) / n_samples).expand(n_rays, n_samples).contiguous()
+    else:
+        u = (steps + torch.rand((n_rays, n_samples), generator=generator,
+                                dtype=w.dtype, device=w.device)) / n_samples
+
+    # last bin whose lower cdf edge is <= u; residual mass (u beyond the last
+    # edge from rounding) goes to the last bin
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n_bins - 1)
+    d_cdf = cdf[:, 1:] - cdf[:, :-1]
+    denom = torch.where(d_cdf < eps, torch.ones_like(d_cdf), d_cdf)
+    k = (t_edges[:, 1:] - t_edges[:, :-1]) / denom
+    base = t_edges[:, :-1] - cdf[:, :-1] * k
+    return torch.gather(base, 1, idx) + u * torch.gather(k, 1, idx)
+
+
+def sample_pdf_weighted_intervals(
+    t_coarse_start: torch.Tensor,
+    t_coarse_end: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    far: float,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fine sampling (`_sample_t_pdf_weighted`): bin edges from the coarse
+    intervals, n_samples inverse-CDF points (monotone by construction, so no
+    sort), back to (t_start, t_end) bins."""
+    edges = torch.cat([t_coarse_start, t_coarse_end[:, -1:]], dim=1)
+    t = sample_pdf(edges, weights, n_samples, generator=generator)
+    return intervals_from_t(t, far)

@@ -1,0 +1,230 @@
+"""BARF / vanilla-NeRF system, serving half: config, parameters, the render
+forward pass, the validation gauge and the pose-error metric.
+
+Port of `nerf_experiments_tpu/systems/barf.py` for the flagship BARF
+configs (dense and proposal-hierarchical). The training half (`loss_fn`,
+`train_step`, `train_step_fused`, the optimizer) comes with the training
+slice; the occupancy grid and block-coarse serving come later.
+
+`forward(..., fused=True)` runs the radiance pass through the flagship render
+kernel (`ops/train_megakernel.py:flagship_render`); the proposal stage of a
+hierarchical config runs its small MLP as plain torch and composites through
+the compositing kernel (`ops/render.py:render_rays_auto`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from nerf_experiments_tpu_torch.cameras import calibration, extrinsics
+from nerf_experiments_tpu_torch.models import nerf_mlp
+from nerf_experiments_tpu_torch.models.common import ParamGroup
+from nerf_experiments_tpu_torch.ops import render, sampling
+from nerf_experiments_tpu_torch.ops.train_megakernel import flagship_render, is_flagship
+
+
+@dataclasses.dataclass(frozen=True)
+class BarfConfig:
+    radiance: nerf_mlp.NerfMLPConfig
+    n_training_images: int
+    near: float = 2.0
+    far: float = 8.0
+    samples_per_ray_radiance: int = 128
+    samples_per_ray_proposal: int = 0  # 0 => no hierarchical sampling
+    proposal: Optional[nerf_mlp.NerfMLPConfig] = None  # None => radiance's architecture
+    share_proposal_net: bool = False  # MipNeRF style (model_mip.py:36)
+    uniform_sampling_strategy: str = "stratified_uniform"
+    uniform_sampling_offset_size: float = 0.0
+    integration_strategy: str = "middle"
+    coarse_loss_weight: float = 1.0
+    density_scale: float = render.DENSITY_SCALE
+
+    optimize_camera: bool = True
+    camera_learning_rate_start: float = 1e-3
+    camera_learning_rate_stop: float = 1e-5
+    camera_learning_rate_decay_end: int = 200_000
+    camera_adam_eps: Optional[float] = None
+
+    max_gaussian_sigma: float = 0.0
+    gaussian_blur_sigmas: Tuple[float, ...] = (0.0, 0.0)
+
+    adam_eps: float = 1e-5
+    adam_b2: float = 0.999
+
+    @property
+    def use_proposal(self) -> bool:
+        return self.samples_per_ray_proposal > 0
+
+    @property
+    def camera_group(self) -> ParamGroup:
+        return ParamGroup(
+            self.camera_learning_rate_start,
+            self.camera_learning_rate_stop,
+            self.camera_learning_rate_decay_end,
+            adam_eps=self.camera_adam_eps,
+        )
+
+
+class BarfParams(nn.Module):
+    """The system's parameters under the JAX package's names: `radiance`,
+    optional `proposal`, and `camera` (rotation, translation)."""
+
+    def __init__(self, radiance: nerf_mlp.NerfMLP, camera: extrinsics.Extrinsics,
+                 proposal: Optional[nerf_mlp.NerfMLP] = None):
+        super().__init__()
+        self.radiance = radiance
+        self.proposal = proposal
+        self.camera = camera
+
+
+def _proposal_cfg(cfg: BarfConfig) -> nerf_mlp.NerfMLPConfig:
+    return cfg.proposal if cfg.proposal is not None else cfg.radiance
+
+
+def init(generator: torch.Generator, cfg: BarfConfig, device=None) -> BarfParams:
+    """Fresh parameters drawn from `generator` (radiance, then proposal)."""
+    radiance = nerf_mlp.init(generator, cfg.radiance, device=device)
+    proposal = None
+    if cfg.use_proposal and not cfg.share_proposal_net:
+        proposal = nerf_mlp.init(generator, _proposal_cfg(cfg), device=device)
+    camera = extrinsics.init(cfg.n_training_images, device=device)
+    return BarfParams(radiance, camera, proposal)
+
+
+def params_from_numpy(tree: Dict, cfg: BarfConfig, device=None) -> BarfParams:
+    """The JAX package's whole-model pytree {"radiance", ["proposal"],
+    "camera": {"rotation", "translation"}} -> BarfParams."""
+    radiance = nerf_mlp.from_numpy(tree["radiance"], cfg.radiance, device=device)
+    proposal = None
+    if "proposal" in tree:
+        proposal = nerf_mlp.from_numpy(tree["proposal"], _proposal_cfg(cfg), device=device)
+    cam = {k: torch.tensor(np.asarray(tree["camera"][k], np.float32), device=device)
+           for k in ("rotation", "translation")}
+    return BarfParams(radiance, extrinsics.Extrinsics(cam["rotation"], cam["translation"]),
+                      proposal)
+
+
+def _eval_model(model: nerf_mlp.NerfMLP, origs, dirs, t_start, t_end, pixel_width,
+                alpha_pos, alpha_dir, integration_strategy, pixel_width_sigma=0.0):
+    """Positions from t bins -> flattened MLP eval -> (density (N,S), rgb
+    (N,S,3)). Mirrors `_compute_positions:288-312` + `_compute_color:356-414`."""
+    n_rays, n_samples = t_start.shape
+    t_q = sampling.t_query(t_start, t_end, integration_strategy)
+    pos = origs[:, None, :] + t_q[..., None] * dirs[:, None, :]
+    dirs_rep = dirs[:, None, :].expand(pos.shape)
+
+    def flat(x, d):
+        return x.reshape(n_rays * n_samples, d)
+
+    density, rgb = nerf_mlp.apply(
+        model, model.cfg, flat(pos, 3), flat(dirs_rep, 3),
+        pixel_width=pixel_width.expand(n_rays, n_samples).reshape(-1, 1),
+        t_start=flat(t_start[..., None], 1), t_end=flat(t_end[..., None], 1),
+        alpha_pos=alpha_pos, alpha_dir=alpha_dir, pixel_width_sigma=pixel_width_sigma,
+    )
+    return density.reshape(n_rays, n_samples), rgb.reshape(n_rays, n_samples, 3)
+
+
+def _proposal_model(params: BarfParams, cfg: BarfConfig) -> nerf_mlp.NerfMLP:
+    if cfg.share_proposal_net or params.proposal is None:
+        return params.radiance
+    return params.proposal
+
+
+@torch.no_grad()
+def forward(
+    params: BarfParams,
+    cfg: BarfConfig,
+    generator: Optional[torch.Generator],
+    ray_origs: torch.Tensor,
+    ray_dirs: torch.Tensor,
+    pixel_width: torch.Tensor,
+    alpha_pos=None,
+    alpha_dir=None,
+    pixel_width_sigma: float = 0.0,
+    stratified: bool = True,
+    fused: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(rgb_fine, rgb_coarse | None) — `NerfInterpolation.forward:417-486`,
+    for eval and serving (no gradient; the training forward comes with the
+    training slice).
+
+    fused=True runs the radiance pass through `flagship_render` and needs
+    `can_fuse_train_step(cfg)`."""
+    n_rays = ray_origs.shape[0]
+    device = ray_origs.device
+    ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
+    strategy = cfg.uniform_sampling_strategy if stratified else "equidistant"
+    offset = cfg.uniform_sampling_offset_size if stratified else 0.0
+    needs_gen = strategy == "stratified_uniform" or offset != 0.0
+    gen = generator if needs_gen else None
+    if fused and not can_fuse_train_step(cfg):
+        raise ValueError("fused=True needs a config that can_fuse_train_step accepts")
+
+    def stratified_bins(n_samples):
+        return sampling.sample_stratified(
+            gen, n_rays, n_samples, cfg.near, cfg.far, strategy, offset, device=device)
+
+    rgb_coarse = None
+    if cfg.use_proposal:
+        tc_start, tc_end = stratified_bins(cfg.samples_per_ray_proposal)
+        dens_c, rgb_c_samples = _eval_model(
+            _proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
+            pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
+        )
+        rgb_coarse, weights = render.render_rays_auto(
+            dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
+        tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
+            tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
+    else:
+        tf_start, tf_end = stratified_bins(cfg.samples_per_ray_radiance)
+
+    if fused:
+        rgb_fine, _, _ = flagship_render(
+            params.radiance, cfg.radiance, ray_origs, ray_dirs, tf_start, tf_end,
+            alpha_pos, alpha_dir, density_scale=cfg.density_scale)
+        return rgb_fine, rgb_coarse
+
+    dens_f, rgb_f_samples = _eval_model(
+        params.radiance, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
+        alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
+    )
+    rgb_fine, _ = render.render_rays_auto(
+        dens_f, rgb_f_samples, tf_end - tf_start, density_scale=cfg.density_scale)
+    return rgb_fine, rgb_coarse
+
+
+def _flagship_mlp(model) -> Optional[nerf_mlp.NerfMLPConfig]:
+    """The NerfMLPConfig when `model` is the flagship architecture the render
+    kernel covers, else None."""
+    if isinstance(model, nerf_mlp.NerfMLPConfig) and is_flagship(model):
+        return model
+    return None
+
+
+def can_fuse_train_step(cfg: BarfConfig) -> bool:
+    """True when the flagship kernels cover this config's radiance pass."""
+    return (_flagship_mlp(cfg.radiance) is not None
+            and cfg.integration_strategy == "middle"
+            and cfg.density_scale == render.DENSITY_SCALE)
+
+
+def use_fused_render(cfg: BarfConfig, device) -> bool:
+    """Eval rendering goes through the render kernel when the config allows
+    it and the tensors live on a CUDA device."""
+    return can_fuse_train_step(cfg) and torch.device(device).type == "cuda"
+
+
+def pose_error_metric(params: BarfParams, camera_origins_raw, camera_origins_noisy):
+    return calibration.compute_pose_error(
+        params.camera, camera_origins_raw, camera_origins_noisy)
+
+
+def val_gauge(params: BarfParams, camera_origins_raw, camera_origins_noisy):
+    """Kabsch raw->pred similarity used by validation_transform."""
+    return calibration.post_transform_params(
+        params.camera, camera_origins_raw, camera_origins_noisy, from_raw_to_pred=True)

@@ -1,0 +1,113 @@
+"""Hygiene of the PyTorch port: it imports no JAX, its kernel build fails
+clearly without nvcc, its checkpoints round-trip, and its entry points
+refuse what is not ported yet."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import nerf_experiments_tpu_torch
+from nerf_experiments_tpu_torch.ops import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        nerf_experiments_tpu_torch.__path__, "nerf_experiments_tpu_torch."))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter (the test
+    process already holds jax through tests/conftest.py)."""
+    mods = all_modules()
+    assert "nerf_experiments_tpu_torch.experiments.render_views" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'orbax', "
+        "'nerf_experiments_tpu') or m.startswith(('jax.', 'flax.', 'optax.', 'orbax.', "
+        "'jaxlib', 'nerf_experiments_tpu.'))]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.build()
+
+
+def test_kernel_sources_and_entry_points():
+    cu, headers = cuda_build._sources()
+    assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu"}
+    assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render"}
+
+
+def mlp_cfg(hidden_dim, n_segments):
+    from nerf_experiments_tpu_torch.encodings.fourier import Barf
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+
+    return nerf_mlp.NerfMLPConfig(
+        position_encoder=Barf(levels=2, scale=1.0), direction_encoder=Barf(levels=1, scale=1.0),
+        n_hidden=1, hidden_dim=hidden_dim, n_segments=n_segments)
+
+
+def test_checkpoint_round_trip(tmp_path):
+    from nerf_experiments_tpu_torch.systems import barf
+    from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+
+    cfg = barf.BarfConfig(radiance=mlp_cfg(8, 2), proposal=mlp_cfg(4, 1),
+                          n_training_images=3, samples_per_ray_proposal=4)
+    a = barf.init(torch.Generator().manual_seed(0), cfg)
+    b = barf.init(torch.Generator().manual_seed(1), cfg)
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for step in (1, 2, 3):
+        mgr.save(step, a, metadata={"seed": step})
+    assert mgr.all_steps() == [2, 3] and mgr.latest_step() == 3
+    mgr.restore(b)
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+    assert "proposal.color.1.w" in a.state_dict() and "camera.rotation" in a.state_dict()
+    with pytest.raises(FileNotFoundError):
+        CheckpointManager(str(tmp_path / "empty")).restore(b)
+
+
+@pytest.mark.parametrize("argv", [["--entry", "mip"], ["--entry", "ingp"],
+                                  ["--serve_block", "4"]])
+def test_render_views_refuses_what_is_not_ported(argv):
+    from nerf_experiments_tpu_torch.experiments import render_views
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        render_views.main(["--ckpt_dir", "unused"] + argv)
+
+
+def test_training_entry_is_not_ported_yet():
+    from nerf_experiments_tpu_torch.experiments import run_barf
+
+    with pytest.raises(NotImplementedError, match="training"):
+        run_barf.main([])
+
+
+def test_fused_forward_needs_a_flagship_config():
+    from nerf_experiments_tpu_torch.systems import barf
+
+    cfg = barf.BarfConfig(radiance=mlp_cfg(4, 1), n_training_images=2,
+                          samples_per_ray_radiance=4)
+    assert not barf.can_fuse_train_step(cfg)
+    assert not barf.use_fused_render(cfg, "cuda")
+    params = barf.init(torch.Generator().manual_seed(0), cfg)
+    o = torch.zeros((2, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 2)
+    with pytest.raises(ValueError):
+        barf.forward(params, cfg, None, o, d, torch.full((2, 1), 1e-3), stratified=False,
+                     fused=True)
