@@ -13,11 +13,31 @@ Phases, each raising on failure:
      north-star hierarchical config (bf16), check the PSNR is finite, that
      the kernels were launched, and that a crop of the render agrees with the
      plain CPU path;
-  5. time kernel and plain paths with CUDA events at the 8192-ray serving
-     chunk.
+  5. time kernel and plain paths at the 8192-ray serving chunk: the
+     compositing kernel by its `torch.profiler` device time per call, the
+     rest with CUDA events;
+  6. hold the compositing backward kernel against `render_bwd_reference`;
+  7. hold the flagship train kernel against `flagship_train_grads_reference`
+     at the flagship width (1024 rays: fp32, bf16, fp32 with loss_scale and
+     weights; 8192 rays x 32 samples bf16, the north-star training shape):
+     rgb, geometry gradients, weights and every dW/db, and two launches
+     bitwise equal;
+  8. one train step, `train_step_fused` against `train_step`, from the same
+     state, batch and generator seed (dense fp32, north-star bf16): the
+     loss, every gradient handed to Adam, and the update;
+  9. the training entry point `run_barf.main --fused_kernel` end to end: the
+     dense flagship at 32^2 (the logged train PSNR must rise by > 1 dB and
+     end above 10 dB), the north-star config at 100^2 with the kernel
+     launches counted, `--resume`, and `render_views` on the checkpoint;
+ 10. time the train step (fused against plain) and the kernels alone at
+     8192 rays (the compositing backward by its `torch.profiler` device
+     time per call), and profile one fused step of each config.
 
-The second-to-last line of stdout is a JSON summary of the kernels; the last
-is `{"ok": true, "device": {...}}`. Without a CUDA device it exits non-zero.
+Each phase prints its wall time. The second-to-last line of stdout is a JSON
+summary of the kernels (`max_abs_err` is the largest absolute difference
+from the plain version over the outputs of that kernel's fp32 checks); the
+last is `{"ok": true, "device": {...}}`. Without a CUDA device it exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -40,7 +60,26 @@ TOL_FP32 = 1e-4
 # each layer's output (density and colour logits included) where the kernel
 # keeps them fp32, as the TPU kernel does; 2e-2 on values in [0, 1].
 TOL_BF16 = 2e-2
+# K3: max abs error over the reference's max abs value (random cotangents;
+# the suffix sums are a scan here and a cumsum there).
+TOL_K3 = 1e-4
+# K4: relative norm ||a - b|| / ||b|| of every output and every dW/db. fp32:
+# summation order only (split-K rows, per-ray sums vs cuBLAS); bf16: both
+# round matmul operands to bf16, the reference also rounds each layer's
+# output and its cotangent where the kernel keeps fp32.
+TOL_K4_FP32 = 1e-4
+TOL_K4_BF16 = 5e-2
+# One train step, fused against plain: the loss (relative), and the Adam
+# update of every parameter by relative norm. Adam divides each gradient by
+# its own magnitude, so a gradient element near zero can flip the sign of its
+# update; the norm over all parameters stays small when the gradients agree.
+TOL_STEP_LOSS = {False: 1e-5, True: 1e-2}
+TOL_STEP_UPDATE = {False: 1e-2, True: 2e-1}
+# ... and every gradient handed to Adam, by relative norm, as K4's outputs.
+TOL_STEP_GRAD = {False: TOL_K4_FP32, True: TOL_K4_BF16}
 FAR = 8.0
+NORTHSTAR = ["--samples_per_ray", "32", "--samples_per_ray_proposal", "64",
+             "--proposal_hidden_dim", "64", "--proposal_n_hidden", "1", "--bf16"]
 
 
 def log(msg: str) -> None:
@@ -67,6 +106,26 @@ def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, calls: int = 200) -> float:
+    """Device time per call: the self time of every CUDA event (kernels,
+    copies, fills) that `torch.profiler` records over `calls` back-to-back
+    calls, divided by `calls`. For kernels whose launch costs more host time
+    than they run, where CUDA events would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA")
+    require(total_us > 0, "torch.profiler recorded no device time")
+    return total_us / 1e3 / calls
 
 
 def flagship_cfg(bf16: bool, hidden_dim=256, n_hidden=4, n_segments=2):
@@ -115,7 +174,7 @@ def phase_compositing(dev):
             + json.dumps(errs) + f" (depth / far), tol {TOL_FP32}")
         for k, v in errs.items():
             require(v <= TOL_FP32, f"K1 S={s} {k} err {v} > {TOL_FP32}")
-        worst = max(worst, errs["rgb"], errs["weights"])
+        worst = max(worst, *errs.values(), errs["depth"] * FAR)
     return worst
 
 
@@ -127,7 +186,7 @@ def phase_flagship(dev):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     origs, dirs = random_rays(N_RAYS, gen, dev)
-    rgb_err_fp32 = 0.0
+    worst_abs_fp32 = 0.0
     for s, bf16, with_w in ((128, False, False), (128, True, False), (32, False, True)):
         cfg = flagship_cfg(bf16)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
@@ -147,9 +206,9 @@ def phase_flagship(dev):
         for k, v in errs.items():
             require(v <= tol, f"K2 S={s} bf16={bf16} {k} err {v} > {tol}")
             require(math.isfinite(v), f"K2 {k} not finite")
-        if not bf16 and s == 128:
-            rgb_err_fp32 = errs["rgb"]
-    return rgb_err_fp32
+        if not bf16:
+            worst_abs_fp32 = max(worst_abs_fp32, *(max_err(g, r) for g, r in zip(got, ref)))
+    return worst_abs_fp32
 
 
 def phase_slice(dev, workdir):
@@ -170,9 +229,10 @@ def phase_slice(dev, workdir):
     launches, exps = {}, {}
     for name, flags in configs.items():
         common = ["--image_size", str(IMAGE_SIZE), "--seed", "7"] + flags
-        exp = run_barf.build(run_barf.parse_args(common), device=dev)
+        cfg, dm = run_barf.build_config(run_barf.parse_args(common))
+        params = barf_sys.init(torch.Generator().manual_seed(7), cfg).to(dev)
         ckpt = os.path.join(workdir, name, "ckpt")
-        CheckpointManager(ckpt).save(1, exp.params)
+        CheckpointManager(ckpt).save(1, params)
         argv = ["--ckpt_dir", ckpt, "--split", "test", "--n_images", "2",
                 "--chunk", str(N_RAYS), "--device", str(dev),
                 "--out_dir", os.path.join(workdir, name)] + common
@@ -189,31 +249,361 @@ def phase_slice(dev, workdir):
             require(render_fwd_cuda.launches > 0, "northstar: compositing never launched")
 
         # a crop of view 0 through the kernels vs the plain path on the CPU
-        dm = exp.dm
         dm.setup("test")
         ds = dm.dataset_test
-        params = CheckpointManager(ckpt).restore(exp.params)
+        params = CheckpointManager(ckpt).restore(params)
         raw = torch.as_tensor(dm.dataset_train.camera_origins)
         noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy)
         lo, hi = IMAGE_SIZE * IMAGE_SIZE // 2, IMAGE_SIZE * IMAGE_SIZE // 2 + 512
         args = (ds.ray_origins[0][lo:hi], ds.ray_directions[0][lo:hi])
-        a_pos = float(exp.cfg.radiance.position_encoder.levels)
+        a_pos = float(cfg.radiance.position_encoder.levels)
         with torch.no_grad():
             gauge_dev = barf_sys.val_gauge(params, raw.to(dev), noisy.to(dev))
             cpu_params = params.to("cpu")
             gauge_cpu = barf_sys.val_gauge(cpu_params, raw, noisy)
-            plain = render_views.render_image(cpu_params, exp.cfg, *args, gauge_cpu,
+            plain = render_views.render_image(cpu_params, cfg, *args, gauge_cpu,
                                               float(ds.pixel_width), 512, "cpu", a_pos, 4.0)
             params.to(dev)
-            kern = render_views.render_image(params, exp.cfg, *args, gauge_dev,
+            kern = render_views.render_image(params, cfg, *args, gauge_dev,
                                              float(ds.pixel_width), 512, dev, a_pos, 4.0)
         tol = TOL_BF16 if "--bf16" in flags else TOL_FP32
         err = float(np.abs(kern - plain).max())
         log(f"slice {name}: 512-ray crop, kernel path vs plain CPU path "
             f"max abs err {err}, tol {tol}")
         require(err <= tol, f"{name}: crop err {err} > {tol}")
-        exps[name] = exp
+        exps[name] = (cfg, params)
     return launches, exps
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def phase_render_bwd(dev):
+    """K3 against `render_bwd_reference` with random cotangents; each
+    output's max abs error relative to the reference's max abs value."""
+    from nerf_experiments_tpu_torch.ops import render
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for s in (64, 128):
+        dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
+        colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
+        t = torch.sort(torch.rand((N_RAYS, s + 1), generator=gen, device=dev) * 6.0 + 2.0,
+                       dim=-1).values
+        dists = (t[:, 1:] - t[:, :-1]).contiguous()
+        tmid = ((t[:, 1:] + t[:, :-1]) / 2.0).contiguous()
+        gw, gt = (torch.randn((N_RAYS, s), generator=gen, device=dev) for _ in range(2))
+        gs = torch.randn((N_RAYS, 5), generator=gen, device=dev)
+        args = (dens, dists, tmid, colors, gw, gt, gs, render.DENSITY_SCALE)
+        got = render_bwd_cuda(*args)
+        ref = render.render_bwd_reference(*args)
+        torch.cuda.synchronize()
+        names = ("d_dens", "d_dists", "d_colors")
+        abs_errs = {n: max_err(g, r) for n, g, r in zip(names, got, ref)}
+        errs = {n: abs_errs[n] / float(r.abs().max()) for n, r in zip(names, ref)}
+        log(f"K3 compositing backward ({N_RAYS}, {s}) fp32 max abs err "
+            + json.dumps(abs_errs) + "; over max abs ref " + json.dumps(errs)
+            + f", tol {TOL_K3}")
+        for k, v in errs.items():
+            require(v <= TOL_K3, f"K3 S={s} {k} err {v} > {TOL_K3}")
+        worst = max(worst, *abs_errs.values())
+    return worst
+
+
+def phase_train_kernel(dev):
+    """K4 against `flagship_train_grads_reference` at the flagship width:
+    every output and every dW/db by relative norm, and two launches bitwise
+    equal. The last setting is the north-star training shape (8192 rays x
+    32 samples, bf16, 16 row splits in the dW reduction)."""
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import sampling
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        flagship_train_grads, flagship_train_grads_reference, train_workspace_bytes)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst_abs_fp32 = 0.0
+    for n, s, bf16, with_w, scale in ((1024, 128, False, False, 1.0),
+                                      (1024, 128, True, False, 1.0),
+                                      (1024, 32, False, True, 0.1),
+                                      (N_RAYS, 32, True, False, 1.0)):
+        origs, dirs = random_rays(n, gen, dev)
+        targets = torch.rand((n, 3), generator=gen, device=dev)
+        cfg = flagship_cfg(bf16)
+        params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
+        ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
+        args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5, scale, with_w)
+        got = flagship_train_grads(*args)
+        again = flagship_train_grads(*args)
+        ref = flagship_train_grads_reference(*args)
+        torch.cuda.synchronize()
+        tag = f"{n}x{s} {'bf16' if bf16 else 'fp32'} loss_scale {scale}"
+        flat = lambda out: [out[0], out[2], out[3], *out[1].values(), *out[4:]]
+        require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
+                f"K4 {tag}: two launches differ")
+        max_abs = max(max_err(a, b) for a, b in zip(flat(got), flat(ref)))
+        tol = TOL_K4_BF16 if bf16 else TOL_K4_FP32
+        errs = {"rgb": rel_norm(got[0], ref[0]), "d_origs": rel_norm(got[2], ref[2]),
+                "d_dirs": rel_norm(got[3], ref[3])}
+        if with_w:
+            errs["weights"] = rel_norm(got[4], ref[4])
+        for name, g in got[1].items():
+            errs[name] = rel_norm(g, ref[1][name])
+        worst = max(errs, key=errs.get)
+        mb = train_workspace_bytes(cfg, n, s, 256, 128) / 2**20
+        log(f"K4 flagship_train {tag}: bitwise equal over two launches; workspace "
+            f"{mb:.0f} MiB; rel norm err rgb {errs['rgb']:.3e} d_origs "
+            f"{errs['d_origs']:.3e} d_dirs {errs['d_dirs']:.3e} worst {worst} "
+            f"{errs[worst]:.3e} over {len(got[1])} grads, tol {tol}; max abs err "
+            f"over all outputs {max_abs:.3e}")
+        for k, v in errs.items():
+            require(v <= tol and math.isfinite(v), f"K4 {tag} {k} err {v} > {tol}")
+        if not bf16:
+            worst_abs_fp32 = max(worst_abs_fp32, max_abs)
+        del got, again, ref
+        torch.cuda.empty_cache()
+    return worst_abs_fp32
+
+
+def train_configs():
+    """(name, flags, BarfConfig) of the two training configs at full width."""
+    from nerf_experiments_tpu_torch.experiments import run_barf
+
+    out = []
+    for name, flags in (("dense fp32", ["--samples_per_ray", "128"]),
+                        ("dense bf16", ["--samples_per_ray", "128", "--bf16"]),
+                        ("northstar bf16", NORTHSTAR)):
+        args = run_barf.parse_args(["--image_size", str(IMAGE_SIZE), "--seed", "7"] + flags)
+        out.append((name, flags, run_barf.build_config(args)[0]))
+    return out
+
+
+def train_batch(n: int, n_images: int, gen: torch.Generator, dev) -> dict:
+    origs, dirs = random_rays(n, gen, dev)
+    return {"origs_noisy": origs, "dirs_noisy": dirs,
+            "colors": torch.rand((n, 2, 3), generator=gen, device=dev),
+            "img_idx": torch.randint(0, n_images, (n,), generator=gen, device=dev),
+            "pixel_width": torch.full((n, 1), 1e-3, device=dev)}
+
+
+def phase_train_step(dev):
+    """train_step_fused against train_step from one state, batch and seed."""
+    import copy
+
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    for name, _, cfg in train_configs():
+        if name == "dense bf16":
+            continue
+        bf16 = cfg.radiance.compute_dtype is not None
+        params = barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev)
+        with torch.no_grad():  # a camera away from zero, so its gradients are general
+            params.camera.rotation.normal_(0.0, 0.05, generator=torch.Generator(dev).manual_seed(9))
+        batch = train_batch(1024, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(10), dev)
+        before = {k: v.clone() for k, v in params.state_dict().items()}
+        out, grads = {}, {}
+        for fused in (False, True):
+            state = barf_sys.init_state(cfg, copy.deepcopy(params))
+            grads[fused] = {}
+            adam_step = state.optimizer.step
+
+            def capture_then_step():  # keep the gradients Adam is handed
+                grads[fused].update({k: p.grad.clone()
+                                     for k, p in state.params.named_parameters()
+                                     if p.grad is not None})
+                adam_step()
+
+            state.optimizer.step = capture_then_step
+            step = barf_sys.make_train_step(cfg, fused=fused)
+            gen = torch.Generator(device=dev).manual_seed(11)
+            state, metrics = step(state, batch, gen, 7.5, 2.5, 0.0)
+            out[fused] = (float(metrics["loss"]), state.params.state_dict(),
+                          bool(metrics["grads_finite"]))
+        torch.cuda.synchronize()
+        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+        require(set(grads[True]) == set(grads[False]) and grads[False],
+                f"{name}: fused and plain steps set gradients on different parameters")
+        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]}
+        worst_g = max(grad_errs, key=grad_errs.get)
+        upd = {k: rel_norm(out[True][1][k] - before[k], out[False][1][k] - before[k])
+               for k in before}
+        worst = max(upd, key=upd.get)
+        log(f"train step {name}: loss fused {out[True][0]:.6f} plain {out[False][0]:.6f} "
+            f"rel err {loss_err:.3e} (tol {TOL_STEP_LOSS[bf16]}); gradient rel norm err "
+            f"worst {worst_g} {grad_errs[worst_g]:.3e} over {len(grad_errs)} tensors (tol "
+            f"{TOL_STEP_GRAD[bf16]}); Adam update rel norm err worst {worst} "
+            f"{upd[worst]:.3e} over {len(upd)} tensors (tol {TOL_STEP_UPDATE[bf16]})")
+        require(out[True][2] and out[False][2], f"{name}: non-finite gradients")
+        require(loss_err <= TOL_STEP_LOSS[bf16], f"{name}: loss err {loss_err}")
+        for k, v in grad_errs.items():
+            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v),
+                    f"{name}: gradient of {k} err {v}")
+        for k, v in upd.items():
+            require(v <= TOL_STEP_UPDATE[bf16], f"{name}: update of {k} err {v}")
+
+
+def phase_training(dev, workdir):
+    """run_barf.main --fused_kernel end to end, with launches counted."""
+    from nerf_experiments_tpu_torch.experiments import render_views, run_barf
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        flagship_render, flagship_train_grads)
+
+    def counted(argv):
+        for fn in (render_fwd_cuda, render_bwd_cuda, flagship_render, flagship_train_grads):
+            fn.launches = 0
+        state = run_barf.main(argv)
+        torch.cuda.synchronize()
+        return state, {"render_fwd": render_fwd_cuda.launches,
+                       "render_bwd": render_bwd_cuda.launches,
+                       "flagship_render": flagship_render.launches,
+                       "flagship_train": flagship_train_grads.launches}
+
+    # dense flagship, the JAX package's end-to-end test at full width
+    out = os.path.join(workdir, "train_dense")
+    dense = ["--image_size", "32", "--batch_size", "1024", "--max_steps", "300",
+             "--samples_per_ray", "128", "--checkpoint_every_n_epochs", "10",
+             "--camera_origin_noise_sigma", "0.0", "--camera_rotation_noise_sigma", "0.0",
+             "--no-optimize_camera", "--alpha_decay_start_step", "0",
+             "--alpha_decay_end_step", "1", "--fused_kernel", "--device", str(dev),
+             "--out_dir", out]
+    state, launches_dense = counted(dense)
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    psnrs = [r["psnr"] for r in rows if "psnr" in r and math.isfinite(r["psnr"])]
+    rates = [r["train_rays_per_sec"] for r in rows if "train_rays_per_sec" in r]
+    log(f"train dense fp32 32^2: {state.step} steps, psnr {psnrs[0]:.3f} -> {psnrs[-1]:.3f} "
+        f"over {len(psnrs)} log rows, last train_rays_per_sec {rates[-1]:.0f}, "
+        f"launches {launches_dense}")
+    require(state.step == 300, "dense run did not reach 300 steps")
+    require(psnrs[-1] > psnrs[0] + 1.0 and psnrs[-1] > 10.0, f"dense PSNR {psnrs}")
+    require(launches_dense["flagship_train"] >= 300, "dense: K4 not on every step")
+
+    # north-star hierarchical, bf16, at the serving scene's size
+    out = os.path.join(workdir, "train_northstar")
+    ns = ["--image_size", str(IMAGE_SIZE), "--batch_size", str(N_RAYS), "--seed", "7",
+          "--checkpoint_every_n_epochs", "10", "--log_every_n_steps", "10",
+          "--fused_kernel", "--device", str(dev), "--out_dir", out] + NORTHSTAR
+    steps = 50
+    state, launches_ns = counted(ns + ["--max_steps", str(steps)])
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    log(f"train northstar bf16 {IMAGE_SIZE}^2 batch {N_RAYS}: {state.step} steps, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, launches {launches_ns}")
+    require(all(math.isfinite(v) for v in losses), "northstar: non-finite loss")
+    for k in ("flagship_train", "render_fwd", "render_bwd"):
+        require(launches_ns[k] >= steps, f"northstar: {k} launched {launches_ns[k]} < {steps}")
+    state, launches_resume = counted(ns + ["--max_steps", str(steps + 10), "--resume"])
+    log(f"resume northstar: {state.step} steps, launches {launches_resume}")
+    require(state.step == steps + 10 and launches_resume["flagship_train"] == 10,
+            "resume did not continue from the checkpoint")
+    summary = render_views.main(
+        ["--ckpt_dir", os.path.join(out, "ckpt"), "--split", "test", "--n_images", "2",
+         "--chunk", str(N_RAYS), "--device", str(dev), "--image_size", str(IMAGE_SIZE),
+         "--seed", "7", "--out_dir", os.path.join(out, "render")] + NORTHSTAR)
+    log(f"render_views on the trained northstar checkpoint (step {summary['ckpt_step']}): "
+        f"mean_psnr {summary['mean_psnr']:.3f}")
+    require(summary["ckpt_step"] == steps + 10 and math.isfinite(summary["mean_psnr"]),
+            "render_views on the trained checkpoint")
+    return {k: launches_dense[k] + launches_ns[k] for k in launches_dense}
+
+
+def profile_step(step_fn, label: str) -> None:
+    """Kernel time by name for one train step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"profile {label}: host wall {wall:.2f} ms, device kernels {total:.2f} ms "
+        f"(idle share {max(0.0, 1 - total / wall):.3f})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_train_timing(dev):
+    """Train step fused vs plain at 8192 rays, K3 and K4 alone vs plain."""
+    import copy
+
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import render, sampling
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        flagship_train_grads, flagship_train_grads_reference)
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    times = {}
+    # K3 by device time over 200 back-to-back calls, at the north-star coarse
+    # shape (S = 64) and S = 128
+    for s in (64, 128):
+        dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
+        colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
+        ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant",
+                                            device=dev)
+        dists, tmid = (te - ts).contiguous(), ((ts + te) / 2).contiguous()
+        g = [torch.randn((N_RAYS, s), generator=gen, device=dev) for _ in range(2)]
+        gs = torch.randn((N_RAYS, 5), generator=gen, device=dev)
+        bwd_args = (dens, dists, tmid, colors, g[0], g[1], gs, render.DENSITY_SCALE)
+        k = device_ms(lambda: render_bwd_cuda(*bwd_args))
+        p = device_ms(lambda: render.render_bwd_reference(*bwd_args))
+        times[f"K3_S{s}"] = (k, p)
+        log(f"time K3 compositing backward {N_RAYS}x{s} fp32, device time per call over "
+            f"200 calls: kernel {k:.4f} ms, plain {p:.4f} ms")
+    # K4 alone at the dense and north-star fine shapes
+    origs, dirs = random_rays(N_RAYS, gen, dev)
+    targets = torch.rand((N_RAYS, 3), generator=gen, device=dev)
+    for s, bf16 in ((128, False), (128, True), (32, True)):
+        cfg = flagship_cfg(bf16)
+        params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
+        ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant", device=dev)
+        args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5)
+        torch.cuda.reset_peak_memory_stats()
+        k = cuda_time_ms(lambda: flagship_train_grads(*args), iters=3, warmup=1)
+        mem_k = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = cuda_time_ms(lambda: flagship_train_grads_reference(*args), iters=3, warmup=1)
+        mem_p = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        tag = f"K4_S{s}_{'bf16' if bf16 else 'fp32'}"
+        times[tag] = (k, p)
+        log(f"time K4 flagship_train {N_RAYS}x{s} {'bf16' if bf16 else 'fp32'}: kernel "
+            f"{k:.3f} ms (peak {mem_k:.1f} GiB), plain {p:.3f} ms (peak {mem_p:.1f} GiB)")
+    # the train step at 8192 rays, fused vs plain, in turns
+    for name, _, cfg in train_configs():
+        params = barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev)
+        batch = train_batch(N_RAYS, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(13), dev)
+        res = {}
+        for fused in (False, True, True, False):
+            state = barf_sys.init_state(cfg, copy.deepcopy(params))
+            step = barf_sys.make_train_step(cfg, fused=fused)
+            run = lambda: step(state, batch, torch.Generator(device=dev).manual_seed(14),
+                               7.5, 2.5, 0.0)
+            res.setdefault(fused, []).append(cuda_time_ms(run, iters=3, warmup=1))
+            del state
+            torch.cuda.empty_cache()
+        k, p = min(res[True]), min(res[False])
+        times[f"step_{name}"] = (k, p)
+        log(f"train step {name} ({N_RAYS} rays): fused {res[True]} ms -> "
+            f"{N_RAYS / k * 1e3:.0f} rays/s; plain {res[False]} ms -> "
+            f"{N_RAYS / p * 1e3:.0f} rays/s")
+        state = barf_sys.init_state(cfg, copy.deepcopy(params))
+        fused_step = barf_sys.make_train_step(cfg, fused=True)
+        profile_step(lambda: fused_step(state, batch, torch.Generator(device=dev).manual_seed(14),
+                                        7.5, 2.5, 0.0), f"fused train step {name}")
+        del state
+        torch.cuda.empty_cache()
+    return times
 
 
 def plain_forward(params, cfg, origs, dirs, pw):
@@ -242,22 +632,26 @@ def plain_forward(params, cfg, origs, dirs, pw):
 def phase_timing(dev, exps):
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import render, sampling
-    from nerf_experiments_tpu_torch.ops.render_cuda import render_full_cuda
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_fwd_cuda
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
         flagship_render, flagship_render_reference)
     from nerf_experiments_tpu_torch.systems import barf as barf_sys
 
     gen = torch.Generator(device=dev).manual_seed(4)
     times = {}
-    # K1 at the north-star coarse shape (S = 64) and S = 128
+    # K1 by device time over 200 back-to-back calls (its launch takes longer
+    # on the host than it runs), at the north-star coarse shape (S = 64) and
+    # S = 128
     for s in (64, 128):
         dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
         colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
         ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant", device=dev)
-        k = cuda_time_ms(lambda: render_full_cuda(dens, colors, ts, te), iters=20)
-        p = cuda_time_ms(lambda: render.render_full(dens, colors, ts, te), iters=20)
+        dists, tmid = (te - ts).contiguous(), ((ts + te) / 2).contiguous()
+        k = device_ms(lambda: render_fwd_cuda(dens, dists, tmid, colors, render.DENSITY_SCALE))
+        p = device_ms(lambda: render.render_full(dens, colors, ts, te))
         times[f"K1_S{s}"] = (k, p)
-        log(f"time K1 compositing {N_RAYS}x{s} fp32: kernel {k:.4f} ms, plain {p:.4f} ms")
+        log(f"time K1 compositing {N_RAYS}x{s} fp32, device time per call over 200 calls: "
+            f"kernel {k:.4f} ms, plain {p:.4f} ms")
     # K2 at the slice's fine shapes
     origs, dirs = random_rays(N_RAYS, gen, dev)
     with torch.no_grad():
@@ -275,11 +669,11 @@ def phase_timing(dev, exps):
                 f"kernel {k:.4f} ms, plain {p:.4f} ms")
         # the serving forward at one chunk, kernels vs plain
         pw = torch.full((N_RAYS, 1), 1e-3, device=dev)
-        for name, exp in exps.items():
+        for name, (cfg, params) in exps.items():
             k = cuda_time_ms(lambda: barf_sys.forward(
-                exp.params, exp.cfg, None, origs, dirs, pw, 10.0, 4.0, stratified=False,
+                params, cfg, None, origs, dirs, pw, 10.0, 4.0, stratified=False,
                 fused=True))
-            p = cuda_time_ms(lambda: plain_forward(exp.params, exp.cfg, origs, dirs, pw))
+            p = cuda_time_ms(lambda: plain_forward(params, cfg, origs, dirs, pw))
             times[f"serve_{name}"] = (k, p)
             log(f"serving forward {name} ({N_RAYS} rays): kernel path {k:.4f} ms = "
                 f"{N_RAYS / k * 1e3:.0f} rays/s; plain path {p:.4f} ms = "
@@ -313,24 +707,51 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
-    k1_err = phase_compositing(dev)
-    k2_err = phase_flagship(dev)
-    with tempfile.TemporaryDirectory() as workdir:
-        launches, exps = phase_slice(dev, workdir)
-        times = phase_timing(dev, exps)
+    def run(num: int, fn, *a):
+        """Phase `num`; prints its wall time."""
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {num} {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
 
+    k1_err = run(2, phase_compositing, dev)
+    k2_err = run(3, phase_flagship, dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, exps = run(4, phase_slice, dev, workdir)
+        times = run(5, phase_timing, dev, exps)
+        exps = None
+        k3_err = run(6, phase_render_bwd, dev)
+        k4_err = run(7, phase_train_kernel, dev)
+        run(8, phase_train_step, dev)
+        train_launches = run(9, phase_training, dev, workdir)
+        train_times = run(10, phase_train_timing, dev)
+
+    # ms / plain_ms: device time per call (torch.profiler) for K1 and K3,
+    # CUDA events per call for K2 and K4
     kernels = {"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
-         "launches": launches["northstar"]["render_fwd"], "max_abs_err": k1_err,
+         "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"],
+         "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/flagship_render.cu",
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:415",
          "launches": launches["dense"]["flagship_render"]
-         + launches["northstar"]["flagship_render"], "max_abs_err": k2_err,
+         + launches["northstar"]["flagship_render"] + train_launches["flagship_render"],
+         "max_abs_err": k2_err,
          "ms": times["K2_S128_fp32"][0], "plain_ms": times["K2_S128_fp32"][1]},
+        {"name": "render_bwd", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/render.cu",
+         "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
+         "launches": train_launches["render_bwd"], "max_abs_err": k3_err,
+         "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
+        {"name": "flagship_train", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/flagship_train.cu",
+         "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:152",
+         "launches": train_launches["flagship_train"], "max_abs_err": k4_err,
+         "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1]},
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

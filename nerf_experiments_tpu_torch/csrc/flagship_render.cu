@@ -31,104 +31,13 @@
 // to bf16 at the points where the TPU kernel rounds (`cde`); products accumulate
 // in fp32. Density and colour logits stay fp32.
 // This is the simple design: FMA loops on the CUDA cores. wgmma/TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flagship_common.cuh"
 
 namespace {
 
-constexpr int kRows = 32;      // samples per chunk (= one warp for compositing)
-constexpr int kThreads = 256;
-constexpr int kMaxLayers = 64;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kPi = 3.14159265358979323846f;
+using namespace netpu;
 
-struct Layers {
-  const void* w[kMaxLayers];   // (in, out) row-major, fp32 or bf16
-  const float* b[kMaxLayers];  // (out,) fp32
-};
-
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
-
-__device__ __forceinline__ float load_w(const float* w, size_t i) { return __ldg(w + i); }
-__device__ __forceinline__ float load_w(const __nv_bfloat16* w, size_t i) {
-  return __bfloat162float(w[i]);
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float cde(float x) {
-  return kBf16 ? __bfloat162float(__float2bfloat16(x)) : x;
-}
-
-// acc[r] += sum_k in[r * ld + k] * W[(k0 + k) * n_out + j] for k < K.
-// `in` is 16-byte aligned and ld % 4 == 0, so rows are read as float4.
-template <typename WT>
-__device__ __forceinline__ void accumulate(float (&acc)[kRows], const float* in, int ld,
-                                           int K, const WT* W, int k0, int n_out, int j) {
-  const int K4 = K & ~3;
-  for (int k = 0; k < K4; k += 4) {
-    const float w0 = load_w(W, static_cast<size_t>(k0 + k) * n_out + j);
-    const float w1 = load_w(W, static_cast<size_t>(k0 + k + 1) * n_out + j);
-    const float w2 = load_w(W, static_cast<size_t>(k0 + k + 2) * n_out + j);
-    const float w3 = load_w(W, static_cast<size_t>(k0 + k + 3) * n_out + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(in + r * ld + k);
-      acc[r] = fmaf(x.x, w0, acc[r]);
-      acc[r] = fmaf(x.y, w1, acc[r]);
-      acc[r] = fmaf(x.z, w2, acc[r]);
-      acc[r] = fmaf(x.w, w3, acc[r]);
-    }
-  }
-  for (int k = K4; k < K; ++k) {
-    const float w = load_w(W, static_cast<size_t>(k0 + k) * n_out + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[r * ld + k], w, acc[r]);
-  }
-}
-
-// out[r][j] = act(in1[r] . W[0:K1, j] + in2[r] . W[K1:K1+K2, j] + b[j]) for the
-// chunk's live rows; columns j < n_round are rounded to the compute type.
-template <typename WT, bool kBf16>
-__device__ void dense(const float* in1, int ld1, int K1, const float* in2, int ld2, int K2,
-                      const void* W_, const float* bias, int n_out, float* out, int ldo,
-                      int rows, bool relu, int n_round) {
-  const WT* W = static_cast<const WT*>(W_);
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    accumulate(acc, in1, ld1, K1, W, 0, n_out, j);
-    if (K2 > 0) accumulate(acc, in2, ld2, K2, W, K1, n_out, j);
-    const float bj = __ldg(bias + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) {
-        float z = acc[r] + bj;
-        if (relu) z = fmaxf(z, 0.f);
-        out[r * ldo + j] = j < n_round ? cde<kBf16>(z) : z;
-      }
-    }
-  }
-}
-
-// One coordinate of the BARF encoding of x: identity at [c], cos block at
-// 3 + c*levels + l, sin block at 3 + 3*levels + c*levels + l (channel-major).
-template <bool kBf16>
-__device__ void encode(float x, int c, int levels, const float* mask, float scale,
-                       float* row) {
-  row[c] = cde<kBf16>(x);
-  for (int l = 0; l < levels; ++l) {
-    float s, co;
-    sincosf(x * ldexpf(scale, l), &s, &co);
-    row[3 + c * levels + l] = cde<kBf16>(mask[l] * co);
-    row[3 + 3 * levels + c * levels + l] = cde<kBf16>(mask[l] * s);
-  }
-}
-
-__device__ __forceinline__ float softplus8(float x) {
-  if (x > 8.f) return x;
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
+constexpr float* kNoStore = nullptr;  // the render kernel keeps no workspace
 
 template <typename WT, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
@@ -154,10 +63,7 @@ flagship_render_kernel(const float* __restrict__ origs, const float* __restrict_
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t ray_row = static_cast<size_t>(ray) * S;
 
-  for (int l = tid; l < Lp + Ld; l += blockDim.x) {
-    const float a = l < Lp ? alpha_pos - l : alpha_dir - (l - Lp);
-    mask[l] = (1.f - cosf(fminf(fmaxf(a, 0.f), 1.f) * kPi)) / 2.f;
-  }
+  barf_window(mask, Lp, Ld, alpha_pos, alpha_dir);
   float o[3], d[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -188,36 +94,36 @@ flagship_render_kernel(const float* __restrict__ origs, const float* __restrict_
     float* cur = buf0;
     float* nxt = buf1;
     dense<WT, kBf16>(enc_p, ldp, P, nullptr, 0, 0, layers.w[0], layers.b[0], D,
-                     cur, lda, rows, true, D);
+                     cur, lda, rows, true, D, kNoStore, 0, 0, nullptr);
     __syncthreads();
     for (int i = 1; i < L; ++i) {
       dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[i], layers.b[i], D,
-                       nxt, lda, rows, true, D);
+                       nxt, lda, rows, true, D, kNoStore, 0, 0, nullptr);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
     // segment 2: [z | pos_enc] in, ReLU layers, then D -> D + 1 with no ReLU
     dense<WT, kBf16>(cur, lda, D, enc_p, ldp, P, layers.w[L], layers.b[L], D,
-                     nxt, lda, rows, true, D);
+                     nxt, lda, rows, true, D, kNoStore, 0, 0, nullptr);
     __syncthreads();
     { float* t = cur; cur = nxt; nxt = t; }
     for (int i = 1; i < L - 1; ++i) {
       dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[L + i], layers.b[L + i], D,
-                       nxt, lda, rows, true, D);
+                       nxt, lda, rows, true, D, kNoStore, 0, 0, nullptr);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
     dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[2 * L - 1], layers.b[2 * L - 1],
-                     D + 1, nxt, lda, rows, false, D);
+                     D + 1, nxt, lda, rows, false, D, kNoStore, 0, 0, nullptr);
     __syncthreads();
     { float* t = cur; cur = nxt; nxt = t; }
     // cur[r][0:D] = hidden features, cur[r][D] = raw density (fp32)
     // colour head: [hidden | dir_enc] -> C (ReLU) -> 3 logits
     dense<WT, kBf16>(cur, lda, D, enc_d, ldq, Q, layers.w[2 * L], layers.b[2 * L], C,
-                     nxt, lda, rows, true, C);
+                     nxt, lda, rows, true, C, kNoStore, 0, 0, nullptr);
     __syncthreads();
     dense<WT, kBf16>(nxt, lda, C, nullptr, 0, 0, layers.w[2 * L + 1], layers.b[2 * L + 1], 3,
-                     logits, 3, rows, false, 0);
+                     logits, 3, rows, false, 0, kNoStore, 0, 0, nullptr);
     __syncthreads();
 
     if (warp == 0) {
@@ -230,12 +136,7 @@ flagship_render_kernel(const float* __restrict__ origs, const float* __restrict_
         c1 = 1.f / (1.f + expf(-logits[lane * 3 + 1]));
         c2 = 1.f / (1.f + expf(-logits[lane * 3 + 2]));
       }
-      float incl = blk;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(kFull, incl, off);
-        if (lane >= off) incl += y;
-      }
+      const float incl = warp_scan(blk, lane);
       float excl = __shfl_up_sync(kFull, incl, 1);
       if (lane == 0) excl = 0.f;
       const float w = expf(carry + excl) * (1.f - expf(blk));

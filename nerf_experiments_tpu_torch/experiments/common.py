@@ -1,16 +1,24 @@
-"""Shared experiment wiring: scene resolution, the blur-sigma ladder and the
-common CLI flags."""
+"""Shared experiment wiring: scene resolution, the blur-sigma ladder, the
+common CLI flags, and `build_barf_experiment`, which assembles a BARF
+system with its ray stores, train step, loggers and trainer."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import tempfile
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from nerf_experiments_tpu_torch.data import synthetic
+from nerf_experiments_tpu_torch.cameras import calibration
+from nerf_experiments_tpu_torch.data import blender, sampler, synthetic
+from nerf_experiments_tpu_torch.systems import barf as barf_sys
+from nerf_experiments_tpu_torch.training import loggers, schedules
+from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+from nerf_experiments_tpu_torch.training.trainer import Trainer, TrainerConfig
 
 
 def resolve_scene(scene_path: str, image_size: int) -> str:
@@ -49,3 +57,118 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=134534)
     p.add_argument("--wandb", action="store_true", default=False)
     p.add_argument("--bf16", action="store_true", default=False)
+    p.add_argument("--device", type=str,
+                   default="cuda" if torch.cuda.is_available() else "cpu")
+
+
+@dataclasses.dataclass
+class BarfExperiment:
+    cfg: barf_sys.BarfConfig
+    state: barf_sys.TrainState
+    trainer: Trainer
+    dm: blender.DataModule
+    train_store: sampler.RayStore
+
+    def fit(self) -> barf_sys.TrainState:
+        return self.trainer.fit(self.state)
+
+
+def build_barf_experiment(
+    cfg: barf_sys.BarfConfig,
+    dm: blender.DataModule,
+    trainer_cfg: TrainerConfig,
+    out_dir: str,
+    device=None,
+    use_wandb: bool = False,
+    wandb_name: Optional[str] = None,
+    alpha_schedules=None,  # (pos_alpha_fn(epoch), dir_alpha_fn(epoch)) or None
+    image_log_names: Tuple[Sequence[str], Sequence[str]] = ((), ()),
+    checkpoint_keep: Optional[int] = None,
+    image_log_taper: Optional[Tuple[float, float, float, float]] = None,
+    fused: bool = False,  # the flagship train kernel's step
+) -> BarfExperiment:
+    """Ray stores on `device`, initial parameters drawn from a generator
+    seeded with `trainer_cfg.seed`, the train step, validation, pose error,
+    image/point loggers, checkpoints and the trainer."""
+    device = torch.device(device or "cpu")
+    dm.setup("fit")
+    train_store = sampler.make_ray_store(dm.dataset_train, device)
+    val_store = sampler.make_ray_store(dm.dataset_val, device) if dm.dataset_val else None
+
+    params = barf_sys.init(torch.Generator().manual_seed(trainer_cfg.seed), cfg).to(device)
+    state = barf_sys.init_state(cfg, params)
+    step_fn = barf_sys.make_train_step(cfg, fused=fused)
+    pos_enc, dir_enc = cfg.radiance.position_encoder, cfg.radiance.direction_encoder
+    levels = (float(pos_enc.levels), float(dir_enc.levels))  # validation: all unlocked
+
+    def scalar_fn(step: int, epoch_frac: float):
+        if alpha_schedules is not None:
+            a_pos, a_dir = alpha_schedules[0](epoch_frac), alpha_schedules[1](epoch_frac)
+        else:
+            a_pos, a_dir = pos_enc.alpha_at(epoch_frac), dir_enc.alpha_at(epoch_frac)
+        return a_pos, a_dir, schedules.barf_sigma_alpha(a_pos, cfg.max_gaussian_sigma)
+
+    raw = train_store.camera_origins_raw
+    noisy = train_store.camera_origins_noisy
+
+    def pose_fn(params):
+        return barf_sys.pose_error_metric(params, raw, noisy)
+
+    def val_step(params, batch):
+        gauge = barf_sys.val_gauge(params, raw, noisy)
+        _, metrics = barf_sys.loss_fn(params, cfg, batch, None, *levels, 0.0, train=False,
+                                      val_gauge=gauge)
+        return metrics
+
+    metric_logger = loggers.MetricLogger(
+        out_dir, use_wandb=use_wandb,
+        wandb_kwargs={"project": "nerf-experiments", "name": wandb_name})
+
+    callbacks = []
+    train_names, val_names = image_log_names
+    if train_names or val_names:
+        fused_render = barf_sys.use_fused_render(cfg, device)
+
+        @torch.no_grad()
+        def render_fn(params, origs, dirs, pw, train_space, img_idx):
+            o = torch.as_tensor(origs, device=device)
+            d = torch.as_tensor(dirs, device=device)
+            if train_space:
+                idx = torch.full((o.shape[0],), img_idx, dtype=torch.int64, device=device)
+                o, d = calibration.training_transform_rays(params.camera, idx, o, d)
+            else:
+                o, d = calibration.validation_transform_rays(
+                    o, d, barf_sys.val_gauge(params, raw, noisy))
+            rgb, _ = barf_sys.forward(params, cfg, None, o, d,
+                                      torch.as_tensor(pw, device=device), *levels,
+                                      stratified=False, fused=fused_render)
+            return torch.clamp(rgb, 0.0, 1.0).cpu().numpy()
+
+        img_logger = loggers.ImageReconstructionLogger(
+            render_fn=render_fn, metric_logger=metric_logger,
+            train_image_names=train_names, validation_image_names=val_names,
+            schedule=loggers.TaperSchedule(*(image_log_taper or (0.002, 1 / 24, 1.0, 5.0))))
+        callbacks.append(
+            lambda trainer, state, step, ef: img_logger.maybe_log(ef, step, state.params, dm))
+
+        @torch.no_grad()
+        def predict_origins(params):
+            return calibration.predicted_train_origins(params.camera, noisy).cpu().numpy()
+
+        point_logger = loggers.CameraPointLogger(
+            predict_origins_fn=predict_origins, metric_logger=metric_logger,
+            schedule=loggers.TaperSchedule(0.0, 1 / 200, 1 / 16, 4.0))
+        callbacks.append(lambda trainer, state, step, ef: point_logger.maybe_log(
+            ef, step, state.params, raw.cpu().numpy()))
+
+    ckpt_mgr = None
+    if trainer_cfg.checkpoint_every_n_epochs:
+        ckpt_mgr = CheckpointManager(os.path.join(out_dir, "ckpt"), keep=checkpoint_keep)
+
+    trainer = Trainer(
+        cfg=trainer_cfg, train_store=train_store, step_fn=step_fn, scalar_fn=scalar_fn,
+        metric_logger=metric_logger, val_store=val_store, val_fn=val_step,
+        pose_error_fn=pose_fn, checkpoint_manager=ckpt_mgr, callbacks=callbacks,
+        lr_fn=barf_sys.lr_fn(cfg, params))
+    return BarfExperiment(cfg=cfg, state=state, trainer=trainer, dm=dm,
+                          train_store=train_store)

@@ -57,8 +57,6 @@ def parse_args(argv=None):
                         "ported so far")
     p.add_argument("--n_images", type=int, default=None, help="limit rendered views")
     p.add_argument("--chunk", type=int, default=2048)
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
     defaults = run_barf.parse_args([])
     for flag in _RUN_BARF_ARGS:
         name = flag.lstrip("-")
@@ -96,7 +94,9 @@ def main(argv=None):
         "--checkpoint_every_n_epochs", "0",
         "--seed", str(args.seed), "--out_dir", args.out_dir,
     ] + (["--bf16"] if args.bf16 else []))
-    return _render(args, run_barf.build(barf_args, device=args.device))
+    cfg, dm = run_barf.build_config(barf_args)
+    params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(args.device)
+    return _render(args, cfg, dm, params)
 
 
 def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
@@ -111,20 +111,19 @@ def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
             torch.as_tensor(origs[lo:hi], device=device),
             torch.as_tensor(dirs[lo:hi], device=device), gauge)
         pw = torch.full((hi - lo, 1), pixel_width, device=device)
-        rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
-                                  stratified=False, fused=fused)
+        with torch.no_grad():
+            rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
+                                      stratified=False, fused=fused)
         out[lo:hi] = torch.clamp(rgb, 0.0, 1.0).cpu().numpy()
     return out
 
 
-def _render(args, exp):
+def _render(args, cfg, dm, params):
     mgr = CheckpointManager(args.ckpt_dir)
-    params = mgr.restore(exp.params, step=args.ckpt_step)
+    params = mgr.restore(params, step=args.ckpt_step)
     device = torch.device(args.device)
 
-    dm = exp.dm
-    if args.split == "test":
-        dm.setup("test")
+    dm.setup("test" if args.split == "test" else "fit")
     dataset = {"train": dm.dataset_train, "val": dm.dataset_val,
                "test": dm.dataset_test}[args.split]
     if dataset is None:
@@ -137,8 +136,8 @@ def _render(args, exp):
         gauge = barf_sys.val_gauge(params, raw, noisy)
 
     # validation uses fully unlocked encodings
-    a_pos = float(exp.cfg.radiance.position_encoder.levels)
-    a_dir = 4.0
+    a_pos = float(cfg.radiance.position_encoder.levels)
+    a_dir = float(cfg.radiance.direction_encoder.levels)
 
     h, w = dataset.image_height, dataset.image_width
     hw = h * w
@@ -146,7 +145,7 @@ def _render(args, exp):
     os.makedirs(os.path.join(args.out_dir, "renders"), exist_ok=True)
     n_images = min(args.n_images or dataset.n_images, dataset.n_images)
     for i in range(n_images):
-        out = render_image(params, exp.cfg, dataset.ray_origins[i], dataset.ray_directions[i],
+        out = render_image(params, cfg, dataset.ray_origins[i], dataset.ray_directions[i],
                            gauge, float(dataset.pixel_width), args.chunk, device,
                            a_pos, a_dir)
         target = dataset.images[i, :, :, -1, :].reshape(hw, 3)

@@ -6,13 +6,20 @@ levels, scale 1, identity prepended) annealed between steps 20k and 100k;
 NerfModel 4x256, 2 segments, delayed direction; 128 samples/ray,
 equidistant sampling with offset -1.
 
-`build` assembles the config, the data module and seeded initial
-parameters. Training (`main`) comes with the training slice of the port.
+`build` assembles the experiment: config, data module, ray stores on the
+device, parameters drawn from a generator seeded with --seed, the train step
+(`--fused_kernel`: the flagship train kernel) and the trainer; `main`
+trains, and with `--resume` continues from the latest checkpoint in
+<out_dir>/ckpt.
+
+    python -m nerf_experiments_tpu_torch.experiments.run_barf --fused_kernel \
+        [--bf16] [--samples_per_ray 32 --samples_per_ray_proposal 64 \
+        --proposal_hidden_dim 64 --proposal_n_hidden 1]
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -22,6 +29,8 @@ from nerf_experiments_tpu_torch.encodings.fourier import Barf
 from nerf_experiments_tpu_torch.experiments import common
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.systems import barf as barf_sys
+from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+from nerf_experiments_tpu_torch.training.trainer import TrainerConfig
 
 
 def parse_args(argv=None):
@@ -75,8 +84,12 @@ def parse_args(argv=None):
     p.add_argument("--alpha_decay_start_step", type=int, default=20_000)
     p.add_argument("--alpha_decay_end_step", type=int, default=100_000)
     p.add_argument("--fused_kernel", action="store_true", default=False,
-                   help="run the step through the fused training kernel "
-                        "(flagship configs; comes with the training slice)")
+                   help="run the step through the flagship train kernel "
+                        "(ops/train_megakernel.py:flagship_train_grads; "
+                        "flagship configs, gradient-exact). On the H100 this "
+                        "step is still slower than the plain autograd step "
+                        "and takes ~22 KB of device memory per sample row "
+                        "(fp32) for its workspace; see PERF.md")
     p.add_argument("--train_coarse_block", type=int, default=1,
                    help="block-coarse training: share the coarse stage "
                         "per block of N raster-consecutive rays (not ported yet)")
@@ -87,16 +100,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-@dataclasses.dataclass
-class BarfExperiment:
-    cfg: barf_sys.BarfConfig
-    dm: blender.DataModule
-    params: barf_sys.BarfParams
-
-
-def build(args, device=None) -> BarfExperiment:
-    """Config, data module (train + val loaded) and initial parameters drawn
-    from a generator seeded with --seed."""
+def build_config(args):
+    """(BarfConfig, data module, not yet set up) for these flags."""
     if args.mesh:
         raise NotImplementedError("--mesh (multi-device training) is not ported yet "
                                   "(ROADMAP A13)")
@@ -120,7 +125,6 @@ def build(args, device=None) -> BarfExperiment:
         validation_fraction=0.06,
         validation_fraction_shuffle=1234,
     )
-    dm.setup("fit")
 
     def iter_to_epoch(it):
         return it * args.batch_size / (dm.n_training_images * args.image_size**2)
@@ -168,16 +172,47 @@ def build(args, device=None) -> BarfExperiment:
         max_gaussian_sigma=args.start_blur_sigma,
         gaussian_blur_sigmas=sigmas,
     )
-    generator = torch.Generator().manual_seed(args.seed)
-    params = barf_sys.init(generator, cfg).to(device)
-    return BarfExperiment(cfg=cfg, dm=dm, params=params)
+    return cfg, dm
 
 
-def main(argv=None):
-    parse_args(argv)
-    raise NotImplementedError(
-        "training is not ported yet: the trainer, the optimizer and the "
-        "backward kernels come with the training slice (ROADMAP A5-A6)")
+def build(args, device=None) -> common.BarfExperiment:
+    """The experiment with its trainer, on `device` (default --device)."""
+    cfg, dm = build_config(args)
+    trainer_cfg = TrainerConfig(
+        max_epochs=args.max_epochs,
+        max_steps=args.max_steps,
+        batch_size=args.batch_size,
+        seed=args.seed,
+        checkpoint_every_n_epochs=args.checkpoint_every_n_epochs or None,
+        log_every_n_steps=args.log_every_n_steps,
+    )
+    name = (
+        f"BARF translation={args.camera_origin_noise_sigma} "
+        f"rotation={args.camera_rotation_noise_sigma}"
+        + (f" blur={args.start_blur_sigma}" if args.start_blur_sigma > 0.25 else "")
+    )
+    return common.build_barf_experiment(
+        cfg, dm, trainer_cfg, args.out_dir, device=device or args.device,
+        use_wandb=args.wandb, wandb_name=name, image_log_names=(["r_1"], ["r_2"]),
+        fused=args.fused_kernel,
+        image_log_taper=(
+            # constant period: (logging_start, delay_start, delay_end, taper)
+            (args.image_log_period_epochs,) * 3 + (1.0,)
+            if args.image_log_period_epochs else None),
+    )
+
+
+def main(argv=None) -> barf_sys.TrainState:
+    """Train; with --resume, from the latest checkpoint in out_dir/ckpt (the
+    reference's `trainer.fit(..., ckpt_path=...)`, barf/run_barf.py:198)."""
+    args = parse_args(argv)
+    exp = build(args)
+    if args.resume:
+        mgr = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
+        if mgr.latest_step() is not None:
+            exp.state = mgr.restore(exp.state)
+            print(f"resumed from step {mgr.latest_step()}")
+    return exp.fit()
 
 
 if __name__ == "__main__":

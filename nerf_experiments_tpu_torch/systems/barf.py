@@ -1,15 +1,22 @@
-"""BARF / vanilla-NeRF system, serving half: config, parameters, the render
-forward pass, the validation gauge and the pose-error metric.
+"""BARF / vanilla-NeRF system: config, parameters, the render forward pass,
+the objective, the train steps (plain autograd and fused), the optimizer,
+the validation gauge and the pose-error metric.
 
 Port of `nerf_experiments_tpu/systems/barf.py` for the flagship BARF
-configs (dense and proposal-hierarchical). The training half (`loss_fn`,
-`train_step`, `train_step_fused`, the optimizer) comes with the training
-slice; the occupancy grid and block-coarse serving come later.
+configs (dense and proposal-hierarchical); the occupancy grid and
+block-coarse training and serving come later (ROADMAP A9).
 
 `forward(..., fused=True)` runs the radiance pass through the flagship render
-kernel (`ops/train_megakernel.py:flagship_render`); the proposal stage of a
-hierarchical config runs its small MLP as plain torch and composites through
-the compositing kernel (`ops/render.py:render_rays_auto`).
+kernel (`ops/train_megakernel.py:flagship_render`, no gradient: eval and
+serving). `train_step_fused` runs it through the flagship train kernel
+(`flagship_train_grads`), which returns the radiance net's gradients and the
+geometry gradients that torch autograd chains into the camera parameters.
+Either way the proposal stage of a hierarchical config runs its small MLP as
+plain torch (under autograd when training) and composites through the
+compositing kernels (`ops/render.py:render_rays_auto`).
+
+The train steps update the state in place (parameters, Adam state, step) and
+return it, with metrics as device scalars.
 """
 from __future__ import annotations
 
@@ -21,10 +28,17 @@ import torch
 from torch import nn
 
 from nerf_experiments_tpu_torch.cameras import calibration, extrinsics
+from nerf_experiments_tpu_torch.data.sampler import blurred_pixel_colors
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.models.common import ParamGroup
 from nerf_experiments_tpu_torch.ops import render, sampling
-from nerf_experiments_tpu_torch.ops.train_megakernel import flagship_render, is_flagship
+from nerf_experiments_tpu_torch.ops.metrics import psnr
+from nerf_experiments_tpu_torch.ops.train_megakernel import (
+    flagship_render,
+    flagship_train_grads,
+    is_flagship,
+)
+from nerf_experiments_tpu_torch.training import optim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +149,6 @@ def _proposal_model(params: BarfParams, cfg: BarfConfig) -> nerf_mlp.NerfMLP:
     return params.proposal
 
 
-@torch.no_grad()
 def forward(
     params: BarfParams,
     cfg: BarfConfig,
@@ -149,12 +162,12 @@ def forward(
     stratified: bool = True,
     fused: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(rgb_fine, rgb_coarse | None) — `NerfInterpolation.forward:417-486`,
-    for eval and serving (no gradient; the training forward comes with the
-    training slice).
+    """(rgb_fine, rgb_coarse | None) — `NerfInterpolation.forward:417-486`.
+    Differentiable (the plain train step's objective runs through it); the
+    fine bins of a hierarchical config are constants, as in the JAX package.
 
-    fused=True runs the radiance pass through `flagship_render` and needs
-    `can_fuse_train_step(cfg)`."""
+    fused=True (eval and serving only: no gradient) runs the radiance pass
+    through `flagship_render` and needs `can_fuse_train_step(cfg)`."""
     n_rays = ray_origs.shape[0]
     device = ray_origs.device
     ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
@@ -179,7 +192,7 @@ def forward(
         rgb_coarse, weights = render.render_rays_auto(
             dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
         tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
-            tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
+            tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
     else:
         tf_start, tf_end = stratified_bins(cfg.samples_per_ray_radiance)
 
@@ -196,6 +209,190 @@ def forward(
     rgb_fine, _ = render.render_rays_auto(
         dens_f, rgb_f_samples, tf_end - tf_start, density_scale=cfg.density_scale)
     return rgb_fine, rgb_coarse
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Parameters, their optimizer and the number of steps taken."""
+
+    params: BarfParams
+    optimizer: optim.MultiGroupAdam
+    step: int = 0
+
+
+def make_groups(cfg: BarfConfig, params: BarfParams):
+    """(groups, params_by_label) shared by the optimizer and the LR rows."""
+    groups = {"radiance": cfg.radiance.param_group, "camera": cfg.camera_group}
+    by_label = {"radiance": list(params.radiance.parameters()),
+                "camera": list(params.camera.parameters())}
+    if params.proposal is not None:
+        groups["proposal"] = _proposal_cfg(cfg).param_group
+        by_label["proposal"] = list(params.proposal.parameters())
+    if not cfg.optimize_camera:
+        groups["camera"] = ParamGroup(0.0, 0.0, 0)
+    return groups, by_label
+
+
+def make_optimizer(cfg: BarfConfig, params: BarfParams) -> optim.MultiGroupAdam:
+    groups, by_label = make_groups(cfg, params)
+    return optim.multi_group_adam(groups, by_label, eps=cfg.adam_eps, adam_b2=cfg.adam_b2)
+
+
+def init_state(cfg: BarfConfig, params: BarfParams) -> TrainState:
+    """A training state at step 0 around `params`."""
+    return TrainState(params=params, optimizer=make_optimizer(cfg, params), step=0)
+
+
+def lr_fn(cfg: BarfConfig, params: BarfParams):
+    """(step) -> {"lr_radiance": ..., "lr_camera": ...} rows
+    (LearningRateMonitor parity, `barf/run_barf.py:139-141`)."""
+    groups, _ = make_groups(cfg, params)
+    return optim.lr_row_fn(groups)
+
+
+def loss_fn(
+    params: BarfParams,
+    cfg: BarfConfig,
+    batch: Dict,
+    generator: Optional[torch.Generator],
+    alpha_pos,
+    alpha_dir,
+    blur_sigma: float,
+    pixel_width_sigma: float = 0.0,
+    train: bool = True,
+    val_gauge=None,
+):
+    """Full training/val objective (`BarfModel._step_helper:29-92`):
+    (loss, metrics)."""
+    if train:
+        origs, dirs = calibration.training_transform_rays(
+            params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
+    else:
+        origs, dirs = calibration.validation_transform_rays(
+            batch["origs_raw"], batch["dirs_raw"], val_gauge)
+    target = blurred_pixel_colors(batch["colors"], cfg.gaussian_blur_sigmas, blur_sigma)[:, 0]
+    rgb_fine, rgb_coarse = forward(
+        params, cfg, generator, origs, dirs, batch["pixel_width"], alpha_pos, alpha_dir,
+        pixel_width_sigma, stratified=train)
+    loss_fine = torch.mean((rgb_fine - target) ** 2)
+    loss = loss_fine
+    metrics = {"loss_fine": loss_fine.detach(), "psnr": psnr(loss_fine.detach())}
+    if rgb_coarse is not None:
+        loss_coarse = torch.mean((rgb_coarse - target) ** 2)
+        loss = loss + cfg.coarse_loss_weight * loss_coarse
+        metrics["loss_coarse"] = loss_coarse.detach()
+    return loss, metrics
+
+
+def _apply_update(state: TrainState, metrics: Dict) -> Tuple[TrainState, Dict]:
+    """Non-finite guard + multi-group Adam, in place."""
+    metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
+    state.optimizer.step()
+    state.step += 1
+    return state, metrics
+
+
+def train_step(
+    state: TrainState,
+    cfg: BarfConfig,
+    batch: Dict,
+    generator: Optional[torch.Generator],
+    alpha_pos,
+    alpha_dir,
+    blur_sigma: float,
+    pixel_width_sigma: float = 0.0,
+) -> Tuple[TrainState, Dict]:
+    """One optimization step: torch autograd of `loss_fn`, the non-finite
+    guard and the multi-group Adam update."""
+    state.optimizer.zero_grad()
+    loss, metrics = loss_fn(state.params, cfg, batch, generator, alpha_pos, alpha_dir,
+                            blur_sigma, pixel_width_sigma)
+    loss.backward()
+    metrics["loss"] = loss.detach()
+    return _apply_update(state, metrics)
+
+
+def train_step_fused(
+    state: TrainState,
+    cfg: BarfConfig,
+    batch: Dict,
+    generator: Optional[torch.Generator],
+    alpha_pos,
+    alpha_dir,
+    blur_sigma: float,
+) -> Tuple[TrainState, Dict]:
+    """One optimization step with the radiance pass through the flagship
+    train kernel (`flagship_train_grads`: forward, compositing, MSE gradient
+    and backward in one call), bypassing autograd for the radiance net.
+    The camera gradients chain through torch autograd of the ray transform
+    from the kernel's d_origs / d_dirs. Equal to `train_step` up to rounding
+    (the fine bins are constants in both): radiance <- fine MSE, proposal <-
+    coarse MSE, camera <- both; with `share_proposal_net` the coarse
+    gradients add into the radiance net's."""
+    if not can_fuse_train_step(cfg):
+        raise ValueError("train_step_fused needs a config that can_fuse_train_step accepts")
+    params = state.params
+    state.optimizer.zero_grad()
+    origs, dirs = calibration.training_transform_rays(
+        params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
+    target = blurred_pixel_colors(
+        batch["colors"], cfg.gaussian_blur_sigmas, blur_sigma)[:, 0].contiguous()
+    n_rays = origs.shape[0]
+    strategy = cfg.uniform_sampling_strategy
+    offset = cfg.uniform_sampling_offset_size
+    gen = generator if (strategy == "stratified_uniform" or offset != 0.0) else None
+
+    roots, root_grads, metrics = [], [], {}
+    loss_coarse = None
+    if cfg.use_proposal:
+        tc_start, tc_end = sampling.sample_stratified(
+            gen, n_rays, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
+            device=origs.device)
+        dens_c, rgb_c_samples = _eval_model(
+            _proposal_model(params, cfg), origs, dirs, tc_start, tc_end,
+            batch["pixel_width"], alpha_pos, alpha_dir, cfg.integration_strategy)
+        rgb_coarse, weights = render.render_rays_auto(
+            dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
+        loss_coarse = torch.mean((rgb_coarse - target) ** 2)
+        roots.append(cfg.coarse_loss_weight * loss_coarse)
+        root_grads.append(torch.ones_like(loss_coarse))
+        t_start, t_end = sampling.sample_pdf_weighted_intervals(
+            tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+    else:
+        t_start, t_end = sampling.sample_stratified(
+            gen, n_rays, cfg.samples_per_ray_radiance, cfg.near, cfg.far, strategy, offset,
+            device=origs.device)
+
+    rgb_fine, grads_rad, d_origs, d_dirs = flagship_train_grads(
+        params.radiance, cfg.radiance, origs.detach().contiguous(),
+        dirs.detach().contiguous(), t_start.contiguous(), t_end.contiguous(), target,
+        alpha_pos, alpha_dir, density_scale=cfg.density_scale)
+    for name, p in params.radiance.named_parameters():
+        p.grad = grads_rad[name]
+    # camera <- fine (the kernel's geometry gradients) + coarse; proposal (or
+    # the shared radiance net, adding into its kernel gradients) <- coarse
+    torch.autograd.backward(roots + [origs, dirs], root_grads + [d_origs, d_dirs])
+
+    loss_fine = torch.mean((rgb_fine - target) ** 2)
+    loss = loss_fine
+    if loss_coarse is not None:
+        loss = loss + cfg.coarse_loss_weight * loss_coarse.detach()
+        metrics["loss_coarse"] = loss_coarse.detach()
+    metrics.update(loss_fine=loss_fine, psnr=psnr(loss_fine), loss=loss)
+    return _apply_update(state, metrics)
+
+
+def make_train_step(cfg: BarfConfig, fused: bool = False):
+    """(state, batch, generator, alpha_pos, alpha_dir, blur_sigma
+    [, pixel_width_sigma]) -> (state, metrics): the plain step, or with
+    fused=True the flagship train kernel's."""
+    if fused:
+        if not can_fuse_train_step(cfg):
+            raise ValueError("fused=True needs a config that can_fuse_train_step accepts")
+        return lambda state, batch, gen, a_pos, a_dir, sigma: train_step_fused(
+            state, cfg, batch, gen, a_pos, a_dir, sigma)
+    return lambda state, batch, gen, a_pos, a_dir, sigma, pw_sigma=0.0: train_step(
+        state, cfg, batch, gen, a_pos, a_dir, sigma, pw_sigma)
 
 
 def _flagship_mlp(model) -> Optional[nerf_mlp.NerfMLPConfig]:

@@ -2,9 +2,12 @@
 
 Reference behaviour (SURVEY.md §5.4): a checkpoint every N epochs with
 save_top_k=-1 (`barf/run_barf.py:142-146`), hyperparameters alongside. Each
-checkpoint is `ckpt_<step>.pt` holding `{"params": state_dict, "step": step}`,
-plus an optional JSON sidecar `meta_<step>.json`. The optimizer state joins
-the file with the training slice.
+checkpoint is `ckpt_<step>.pt` holding `{"params": state_dict, "step": step}`
+and, when a training state was saved, `"opt_state"`: the optimizer's state
+(Adam moments, its step counts and the schedules' count), so a resumed run
+continues bit for bit. An optional JSON sidecar `meta_<step>.json` holds
+metadata. A params-only file restores into parameters or into a training
+state's parameters alike.
 """
 from __future__ import annotations
 
@@ -19,6 +22,16 @@ from torch import nn
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: Optional[int] = None):
         self.directory = os.path.abspath(directory)
@@ -28,11 +41,17 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
 
-    def save(self, step: int, params: nn.Module,
-             metadata: Optional[Dict[str, Any]] = None) -> None:
-        state = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    def save(self, step: int, target, metadata: Optional[Dict[str, Any]] = None) -> None:
+        """`target`: parameters (an nn.Module), or a training state with
+        `.params`, `.optimizer` and `.step`."""
+        blob = {"step": int(step)}
+        if isinstance(target, nn.Module):
+            blob["params"] = _to_cpu(target.state_dict())
+        else:
+            blob["params"] = _to_cpu(target.params.state_dict())
+            blob["opt_state"] = _to_cpu(target.optimizer.state_dict())
         tmp = self._path(step) + ".tmp"
-        torch.save({"params": state, "step": int(step)}, tmp)
+        torch.save(blob, tmp)
         os.replace(tmp, self._path(step))
         if metadata is not None:
             with open(os.path.join(self.directory, f"meta_{step}.json"), "w") as f:
@@ -41,15 +60,23 @@ class CheckpointManager:
             for old in self.all_steps()[:-self.keep]:
                 os.remove(self._path(old))
 
-    def restore(self, params: nn.Module, step: Optional[int] = None) -> nn.Module:
-        """Load a checkpoint into `params` (same structure) and return it."""
+    def restore(self, target, step: Optional[int] = None):
+        """Load a checkpoint into `target` (parameters, or a training state
+        of the same structure: its parameters, optimizer state when the file
+        has one, and step) and return it."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        params.load_state_dict(blob["params"])
-        return params
+        if isinstance(target, nn.Module):
+            target.load_state_dict(blob["params"])
+            return target
+        target.params.load_state_dict(blob["params"])
+        if "opt_state" in blob:
+            target.optimizer.load_state_dict(blob["opt_state"])
+        target.step = int(blob["step"])
+        return target
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

@@ -1,0 +1,137 @@
+"""Multi-group Adam with per-group LR schedules, on `torch.optim.Adam`.
+
+Port of the JAX package's `training/optim.py` (optax): one Adam param group
+per label, each with its own schedule, eps and freeze window. It reproduces
+the reference's single Adam(eps=1e-5) over NerfBaseModel param groups with
+SchedulerLeNice (`barf/model_interpolation.py:543-584`), and garf's
+one-Adam-per-subnet style (Adam state is per parameter, so one Adam over
+disjoint groups is the same update).
+
+What matches optax, step for step:
+  * the LR of a step is the schedule at the count of updates taken BEFORE it
+    (`optax.scale_by_schedule` reads its count before the increment): the
+    first `step()` uses schedule(0);
+  * Adam's eps is added after the bias-corrected square root, in torch as in
+    optax; a frozen group, or the camera with `optimize_camera=False`, has
+    lr 0: its moments still move, its parameters do not;
+  * a freeze window zeroes the group's gradients before the moments see them
+    (`_zero_grads_in_window`);
+  * `guard_nonfinite` zeroes every gradient when any is non-finite, and the
+    Adam update still runs: the moments decay and the parameters move by
+    momentum, exactly as optax does on a zeroed gradient tree. Gradients are
+    set as zero tensors, never None, which torch would skip.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List
+
+import torch
+
+from nerf_experiments_tpu_torch.models.common import ParamGroup
+from nerf_experiments_tpu_torch.training import schedules
+
+
+def group_lr_schedules(groups: Dict[str, ParamGroup], schedule_kind: str = "le_nice",
+                       scheduler_steps_per_period: int = 1):
+    """label -> LR schedule (step -> float), exactly as the optimizer applies
+    it; also the LearningRateMonitor rows (`barf/run_barf.py:139-141`)."""
+    if schedule_kind == "le_nice":
+        schedule_fn = schedules.le_nice
+    elif schedule_kind == "garf_exponential":
+        schedule_fn = schedules.garf_exponential
+    elif schedule_kind == "quantized_exponential":
+        def schedule_fn(a, b, c):
+            return schedules.quantized_exponential(a, b, c, scheduler_steps_per_period)
+    else:
+        raise ValueError(f"unknown schedule_kind {schedule_kind!r}")
+
+    def build(g: ParamGroup):
+        base = schedule_fn(g.learning_rate_start, g.learning_rate_stop,
+                           g.learning_rate_decay_end)
+        if g.freeze_end_step <= g.freeze_start_step:
+            return base
+        lo, hi = g.freeze_start_step, g.freeze_end_step
+        return lambda step: 0.0 if lo <= step < hi else base(step)
+
+    return {label: build(g) for label, g in groups.items()}
+
+
+def lr_row_fn(groups: Dict[str, ParamGroup], schedule_kind: str = "le_nice",
+              scheduler_steps_per_period: int = 1):
+    """(step) -> {"lr_<group>": float} for the trainer's metric rows."""
+    scheds = group_lr_schedules(groups, schedule_kind, scheduler_steps_per_period)
+    return lambda step: {f"lr_{label}": float(s(step)) for label, s in scheds.items()}
+
+
+def guard_nonfinite(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Zero every parameter's gradient if ANY is non-finite; a missing
+    gradient becomes zeros. Returns the (device) flag "all finite", without a
+    host sync."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    ok = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+    for p in params:
+        p.grad.masked_fill_(~ok, 0.0)
+    return ok
+
+
+class MultiGroupAdam:
+    """torch.optim.Adam with one param group per label, LRs from schedules."""
+
+    def __init__(self, groups: Dict[str, ParamGroup],
+                 params_by_label: Dict[str, List[torch.Tensor]], eps: float = 1e-5,
+                 schedule_kind: str = "le_nice", adam_b1: float = 0.9,
+                 adam_b2: float = 0.999, scheduler_steps_per_period: int = 1):
+        for label, g in groups.items():
+            if g.weight_decay:
+                raise NotImplementedError(
+                    f"group {label!r}: weight decay (the INGP recipe) is not ported yet "
+                    "(ROADMAP A12)")
+        self.groups = dict(groups)
+        self.schedules = group_lr_schedules(groups, schedule_kind, scheduler_steps_per_period)
+        self.adam = torch.optim.Adam(
+            [{"params": list(params_by_label[label]), "label": label,
+              "eps": eps if g.adam_eps is None else g.adam_eps, "lr": 0.0}
+             for label, g in groups.items()],
+            lr=0.0, betas=(adam_b1, adam_b2), eps=eps)
+        self.count = 0  # updates taken: the schedules' step
+
+    def params(self) -> List[torch.Tensor]:
+        return [p for group in self.adam.param_groups for p in group["params"]]
+
+    def step(self) -> None:
+        for group in self.adam.param_groups:
+            g = self.groups[group["label"]]
+            group["lr"] = float(self.schedules[group["label"]](self.count))
+            if g.freeze_start_step <= self.count < g.freeze_end_step:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        p.grad.zero_()
+        self.adam.step()
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
+
+def multi_group_adam(groups: Dict[str, ParamGroup],
+                     params_by_label: Dict[str, List[torch.Tensor]], eps: float = 1e-5,
+                     schedule_kind: str = "le_nice", adam_b1: float = 0.9,
+                     adam_b2: float = 0.999,
+                     scheduler_steps_per_period: int = 1) -> MultiGroupAdam:
+    """The optimizer: `groups` label -> ParamGroup hyperparameters,
+    `params_by_label` label -> its parameters. schedule_kind: "le_nice"
+    (clamped closed form), "garf_exponential" (unclamped per step) or
+    "quantized_exponential" (staircase, `scheduler_steps_per_period` steps
+    per LR update)."""
+    return MultiGroupAdam(groups, params_by_label, eps, schedule_kind, adam_b1, adam_b2,
+                          scheduler_steps_per_period)

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports no JAX, its kernel build fails
-clearly without nvcc, its checkpoints round-trip, and its entry points
-refuse what is not ported yet."""
+clearly without nvcc (also when a CUDA tensor reaches a kernel wrapper), its
+checkpoints round-trip, and its entry points refuse what is not ported yet."""
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -24,7 +25,13 @@ def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter (the test
     process already holds jax through tests/conftest.py)."""
     mods = all_modules()
-    assert "nerf_experiments_tpu_torch.experiments.render_views" in mods
+    assert {"nerf_experiments_tpu_torch.experiments.render_views",
+            "nerf_experiments_tpu_torch.experiments.run_barf",
+            "nerf_experiments_tpu_torch.data.sampler",
+            "nerf_experiments_tpu_torch.training.optim",
+            "nerf_experiments_tpu_torch.training.schedules",
+            "nerf_experiments_tpu_torch.training.loggers",
+            "nerf_experiments_tpu_torch.training.trainer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,8 +56,62 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_kernel_sources_and_entry_points():
     cu, headers = cuda_build._sources()
-    assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu"}
-    assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render"}
+    assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu"}
+    assert {f.name for f in headers} >= {"flagship_common.cuh"}
+    assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render",
+                                          "netpu_render_bwd", "netpu_flagship_train"}
+
+
+class FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: enough to reach a wrapper's
+    kernel branch on a machine without a GPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def fake_cuda(*shape):
+    return torch.Tensor._make_subclass(FakeCuda, torch.rand(shape))
+
+
+def kernel_calls():
+    """Every kernel wrapper, called the way the port's callers call it."""
+    from nerf_experiments_tpu_torch.ops import render
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        flagship_render, flagship_train_grads)
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+
+    n, s = 4, 8
+    cfg = dataclasses.replace(mlp_cfg(8, 2), n_hidden=1)
+    params = nerf_mlp.init(torch.Generator().manual_seed(0), cfg)
+    rays = lambda: (fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, s), fake_cuda(n, s))
+    return {
+        "render_rays": lambda: render.render_rays_auto(fake_cuda(n, s), fake_cuda(n, s, 3),
+                                                       fake_cuda(n, s)),
+        "render_full": lambda: render.render_full_auto(fake_cuda(n, s), fake_cuda(n, s, 3),
+                                                       fake_cuda(n, s), fake_cuda(n, s)),
+        "render_bwd": lambda: render_bwd_cuda(*(fake_cuda(n, s) for _ in range(2)), None,
+                                              fake_cuda(n, s, 3), fake_cuda(n, s),
+                                              fake_cuda(n, s), fake_cuda(n, 5), 1.0),
+        "flagship_render": lambda: flagship_render(params, cfg, *rays()),
+        "flagship_train": lambda: flagship_train_grads(params, cfg, *rays(), fake_cuda(n, 3),
+                                                       1.0, 1.0),
+    }
+
+
+@pytest.mark.parametrize("entry", ["flagship_render", "flagship_train", "render_bwd",
+                                   "render_full", "render_rays"])
+def test_cuda_tensor_without_nvcc_raises_the_nvcc_error(entry, tmp_path, monkeypatch):
+    """A CUDA tensor goes to the kernel or the call raises: never a silent
+    fall back to the plain version."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    cuda_build.library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernel_calls()[entry]()
 
 
 def mlp_cfg(hidden_dim, n_segments):
@@ -91,11 +152,14 @@ def test_render_views_refuses_what_is_not_ported(argv):
         render_views.main(["--ckpt_dir", "unused"] + argv)
 
 
-def test_training_entry_is_not_ported_yet():
+@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--occ_grid_resolution", "32"],
+                                  ["--train_coarse_block", "4"]])
+def test_training_entry_is_not_ported_yet(argv):
+    """`run_barf.main` trains; what its training does not carry yet refuses."""
     from nerf_experiments_tpu_torch.experiments import run_barf
 
-    with pytest.raises(NotImplementedError, match="training"):
-        run_barf.main([])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        run_barf.main(argv)
 
 
 def test_fused_forward_needs_a_flagship_config():

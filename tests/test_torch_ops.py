@@ -2,8 +2,10 @@
 
 The same numpy inputs, made from a seed, go through the JAX function and its
 port. Tolerances: fp32 elementwise ops rtol=1e-5, atol=1e-6; Kabsch (an SVD
-in each framework, whose LAPACK paths differ) atol=1e-5.
+in each framework, whose LAPACK paths differ) atol=1e-5; the compositing
+backward (suffix sums in another order) rtol=1e-5, atol=1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -244,3 +246,72 @@ def test_sample_pdf_with_generator_stays_in_range():
     assert out.shape == (6, 20)
     assert (out >= t(edges[:, :1]) - 1e-5).all() and (out <= t(edges[:, -1:]) + 1e-5).all()
     assert (out[:, 1:] >= out[:, :-1]).all()
+
+
+# ---------------------------------------------------------------- render backward
+
+BWD = dict(rtol=1e-5, atol=1e-5)
+
+
+def _bwd_inputs(n=12, s=37, seed=11):
+    """Inputs and random cotangents; s = 37 spans two 32-sample steps."""
+    rng = np.random.default_rng(seed)
+    dens, colors, ts, te = _render_inputs(n, s, seed)
+    gw, gt = rng.normal(size=(2, n, s)).astype(np.float32)
+    gstats = rng.normal(size=(n, 5)).astype(np.float32)
+    return dens, (te - ts).astype(np.float32), ((ts + te) / 2).astype(np.float32), colors, \
+        gw, gt, gstats
+
+
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_render_bwd_reference_matches_pallas_vjp(with_depth):
+    """The plain version of the compositing backward kernel against the JAX
+    package's Pallas VJP (`_render_core`, interpret mode): cotangents on
+    weights, trans and every stat."""
+    dens, dists, tmid, colors, gw, gt, gstats = _bwd_inputs()
+    if not with_depth:
+        tmid = np.zeros_like(tmid)
+    core = lambda d, di, c: jrender_pallas._render_core(
+        d, di, jnp.asarray(tmid), c, float(trender.DENSITY_SCALE), True)
+    _, vjp = jax.vjp(core, *map(jnp.asarray, (dens, dists, colors)))
+    gstats8 = np.concatenate([gstats, np.zeros((gstats.shape[0], 3), np.float32)], axis=-1)
+    want = vjp((jnp.asarray(gw), jnp.asarray(gt), jnp.asarray(gstats8)))
+    got = trender.render_bwd_reference(t(dens), t(dists), t(tmid) if with_depth else None,
+                                       t(colors), t(gw), t(gt), t(gstats))
+    for a, b in zip(got, want):
+        close(a, b, **BWD)
+
+
+def test_render_bwd_reference_matches_autograd():
+    """... and against torch autograd of the plain compositing, with the
+    densities, distances and colours as independent leaves."""
+    dens, dists, tmid, colors, gw, gt, gstats = map(t, _bwd_inputs(seed=12))
+    leaves = [x.clone().requires_grad_(True) for x in (dens, dists, colors)]
+    weights, _, trans = trender.render_weights(leaves[0], leaves[1])
+    stats = torch.cat([torch.sum(weights[..., None] * leaves[2], dim=-2),
+                       weights.sum(-1, keepdim=True),
+                       (weights * tmid).sum(-1, keepdim=True)], dim=-1)
+    loss = (weights * gw).sum() + (trans * gt).sum() + (stats * gstats).sum()
+    want = torch.autograd.grad(loss, leaves)
+    got = trender.render_bwd_reference(dens, dists, tmid, colors, gw, gt, gstats)
+    for a, b in zip(got, want):
+        close(a, b, **BWD)
+
+
+@pytest.mark.parametrize("entry", ["rays", "full"])
+def test_cpu_autograd_takes_the_plain_version(entry):
+    """On CPU tensors that require grad, the dispatchers are plain autograd:
+    the same gradients as `render_rays`/`render_full`, no kernel launched."""
+    dens, colors, ts, te = map(t, _render_inputs(seed=13))
+    launches = (render_cuda.render_fwd_cuda.launches, render_cuda.render_bwd_cuda.launches)
+    grads = []
+    for fn in ((trender.render_rays_auto, trender.render_rays) if entry == "rays"
+               else (trender.render_full_auto, trender.render_full)):
+        d, c = dens.clone().requires_grad_(True), colors.clone().requires_grad_(True)
+        out = fn(d, c, te - ts) if entry == "rays" else fn(d, c, ts, te)
+        out[0].square().sum().backward()
+        grads.append((d.grad, c.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    assert (render_cuda.render_fwd_cuda.launches,
+            render_cuda.render_bwd_cuda.launches) == launches
