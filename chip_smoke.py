@@ -5,7 +5,8 @@
 Phases, each raising on failure:
   1. print the card's name and power limit; build the CUDA kernels from
      `nerf_experiments_tpu_torch/csrc/` with nvcc and print the build time;
-  2. hold the compositing kernel against `render.render_full` on the card;
+  2. hold the compositing kernel against `render.render_full` on the card at
+     S = 64, 128 (BARF) and 192 (GARF validation);
   3. hold the flagship render kernel against `flagship_render_reference` at
      the flagship width (fp32, bf16, fp32 with weights);
   4. run the serving entry point `render_views.main` end to end on a
@@ -31,7 +32,24 @@ Phases, each raising on failure:
      launches counted, `--resume`, and `render_views` on the checkpoint;
  10. time the train step (fused against plain) and the kernels alone at
      8192 rays (the compositing backward by its `torch.profiler` device
-     time per call), and profile one fused step of each config.
+     time per call), and profile one fused step of each config;
+ 11. hold the GARF render kernel (K6) against
+     `garf_radiance_render_reference` for gauss, gabor and sarf, fp32 and
+     bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a ragged 50;
+ 12. hold the GARF train kernel (K5) against
+     `garf_radiance_train_grads_reference` for the same settings at 1024 x
+     192 and 256 x 50: rgb, weights, geometry gradients and every dW / db /
+     d(activation parameter) by relative norm, two launches bitwise equal;
+     in bf16 also print how far the kernel and the plain version each are
+     from the plain version in fp32 (the size of bf16's own error);
+ 13. one GARF step, `train_step_fused` against `train_step` from the same
+     state, batch and generator seed (gauss fp32, gabor bf16);
+ 14. `garf_main.main --fused_kernel` end to end on a generated 32^2 scene
+     (gauss fp32: the train PSNR must rise by > 1 dB; `--resume`; short
+     gabor bf16 and sarf runs), with K5, K6 and K1 launches counted;
+ 15. time K5 (4096 x 192) and K6 (8192 x 192) against their plain versions,
+     the GARF train step fused against plain at 4096 rays, the proposal
+     stage, and profile one fused GARF step.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -156,7 +174,7 @@ def phase_compositing(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    for s in (64, 128):
+    for s in (64, 128, 192):  # BARF's coarse and fine counts; GARF's validation
         dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
         colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
         t = torch.sort(torch.rand((N_RAYS, s + 1), generator=gen, device=dev) * 6.0 + 2.0,
@@ -681,6 +699,354 @@ def phase_timing(dev, exps):
     return times
 
 
+GARF_FAMILIES = (("gauss", 1.0), ("gabor", 1.0), ("gabor", 0.37), ("sarf", 1.0),
+                 ("sarf", 0.37))
+GARF_FAR = 7.0
+GARF_RAYS = 4096  # the GARF training batch timed in phase 15
+
+
+def garf_cfg(activation: str, bf16: bool):
+    from nerf_experiments_tpu_torch.models import garf
+
+    lo = 0.0 if activation == "gabor" else 0.5  # garf_main's ACTIVATION_DEFAULTS
+    return garf.GarfConfig(activation=activation, init_min=lo, init_max=2.0,
+                           compute_dtype=torch.bfloat16 if bf16 else None)
+
+
+def garf_inputs(n: int, s: int, activation: str, bf16: bool, seed: int, dev):
+    """Random GARF radiance weights (seeded) and n rays with lindisp bins."""
+    from nerf_experiments_tpu_torch.models import garf
+    from nerf_experiments_tpu_torch.ops import sampling
+
+    cfg = garf_cfg(activation, bf16)
+    params = garf.radiance_init(torch.Generator().manual_seed(seed), cfg).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    origs, dirs = random_rays(n, gen, dev)
+    edges = sampling.lindisp_edges(n, s, 2.0, GARF_FAR, True, gen, device=dev)
+    targets = torch.rand((n, 3), generator=gen, device=dev)
+    return cfg, params, origs, dirs, edges[:, :-1].contiguous(), edges[:, 1:].contiguous(), \
+        targets
+
+
+def phase_garf_render(dev):
+    """K6 against `garf_radiance_render_reference`: every family, fp32 and
+    bf16, gamma 1 and 0.37 (gabor / sarf), S = 192 and a ragged 50."""
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_render, garf_radiance_render_reference)
+
+    worst_abs_fp32 = 0.0
+    for s in (192, 50):
+        for activation, gamma in GARF_FAMILIES:
+            for bf16 in (False, True):
+                cfg, params, o, d, ts, te, _ = garf_inputs(1024, s, activation, bf16, 21, dev)
+                with torch.no_grad():
+                    got = garf_radiance_render(params, cfg, o, d, ts, te, gamma)
+                    ref = garf_radiance_render_reference(params, cfg, o, d, ts, te, gamma)
+                torch.cuda.synchronize()
+                tol = TOL_BF16 if bf16 else TOL_FP32
+                errs = {n: max_err(g, r) / (GARF_FAR if n == "depth" else 1.0)
+                        for n, g, r in zip(("rgb", "opacity", "depth"), got, ref)}
+                log(f"K6 garf_render {activation} gamma {gamma} 1024x{s} "
+                    f"{'bf16' if bf16 else 'fp32'} max abs err "
+                    + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+                    + f" (depth / far), tol {tol}; mean opacity {float(ref[1].mean()):.3f}")
+                for k, v in errs.items():
+                    require(v <= tol and math.isfinite(v),
+                            f"K6 {activation} {gamma} S={s} bf16={bf16} {k} err {v} > {tol}")
+                if not bf16:
+                    worst_abs_fp32 = max(worst_abs_fp32,
+                                         *(max_err(g, r) for g, r in zip(got, ref)))
+    return worst_abs_fp32
+
+
+def phase_garf_train_kernel(dev):
+    """K5 against `garf_radiance_train_grads_reference`: rgb, weights, the
+    geometry gradients and every dW / db / d(activation parameter) by
+    relative norm, and two launches bitwise equal; every family, fp32 and
+    bf16, at 1024 x 192 and 256 x 50."""
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_train_grads, garf_radiance_train_grads_reference,
+        train_workspace_bytes)
+
+    def errors(got, ref):
+        errs = {"rgb": rel_norm(got[0], ref[0]), "weights": rel_norm(got[1], ref[1]),
+                "d_origs": rel_norm(got[3], ref[3]), "d_dirs": rel_norm(got[4], ref[4])}
+        for name, g in ref[2].items():
+            errs[name] = rel_norm(got[2][name], g)
+        return errs
+
+    worst_abs_fp32 = 0.0
+    for n, s in ((1024, 192), (256, 50)):
+        for activation, gamma in GARF_FAMILIES:
+            for bf16 in (False, True):
+                cfg, params, o, d, ts, te, tg = garf_inputs(n, s, activation, bf16, 22, dev)
+                args = (params, cfg, o, d, ts, te, tg, gamma)
+                got = garf_radiance_train_grads(*args)
+                again = garf_radiance_train_grads(*args)
+                ref = garf_radiance_train_grads_reference(*args)
+                torch.cuda.synchronize()
+                tag = f"{activation} gamma {gamma} {n}x{s} {'bf16' if bf16 else 'fp32'}"
+                flat = lambda out: [out[0], out[1], out[3], out[4], *out[2].values()]
+                require(set(got[2]) == set(ref[2]), f"K5 {tag}: gradient names differ")
+                require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
+                        f"K5 {tag}: two launches differ")
+                max_abs = max(max_err(a, b) for a, b in zip(
+                    [got[0], got[1], got[3], got[4], *(got[2][k] for k in ref[2])],
+                    [ref[0], ref[1], ref[3], ref[4], *ref[2].values()]))
+                tol = TOL_K4_BF16 if bf16 else TOL_K4_FP32
+                errs = errors(got, ref)
+                worst = max(errs, key=errs.get)
+                mb = train_workspace_bytes(cfg, n, s) / 2**20
+                log(f"K5 garf_train {tag}: bitwise equal over two launches; workspace "
+                    f"{mb:.0f} MiB; rel norm err rgb {errs['rgb']:.3e} weights "
+                    f"{errs['weights']:.3e} d_origs {errs['d_origs']:.3e} d_dirs "
+                    f"{errs['d_dirs']:.3e} worst {worst} {errs[worst]:.3e} over "
+                    f"{len(ref[2])} grads, tol {tol}; max abs err {max_abs:.3e}")
+                if bf16:  # bf16's own error: both against the plain version in fp32
+                    ref32 = garf_radiance_train_grads_reference(
+                        params, dataclasses.replace(cfg, compute_dtype=None), *args[2:])
+                    e_ref, e_got = errors(ref, ref32), errors(got, ref32)
+                    log(f"  against the fp32 plain version: plain bf16 d_origs "
+                        f"{e_ref['d_origs']:.3e} d_dirs {e_ref['d_dirs']:.3e} worst "
+                        f"{max(e_ref.values()):.3e}; kernel bf16 d_origs {e_got['d_origs']:.3e} "
+                        f"d_dirs {e_got['d_dirs']:.3e} worst {max(e_got.values()):.3e}")
+                    del ref32
+                for k, v in errs.items():
+                    require(v <= tol and math.isfinite(v), f"K5 {tag} {k} err {v} > {tol}")
+                if not bf16:
+                    worst_abs_fp32 = max(worst_abs_fp32, max_abs)
+                del got, again, ref
+        torch.cuda.empty_cache()
+    return worst_abs_fp32
+
+
+def garf_system_cfg(activation: str, bf16: bool):
+    from nerf_experiments_tpu_torch.systems import garf_system
+
+    net = garf_cfg(activation, bf16)
+    return garf_system.GarfSystemConfig(n_train_images=12, near=2.0, far=GARF_FAR, net=net,
+                                        camera_learning_rate_start=4e-3,
+                                        camera_learning_rate_stop=8e-4)
+
+
+def garf_batch(n: int, gen: torch.Generator, dev) -> dict:
+    origs, dirs = random_rays(n, gen, dev)
+    return {"origs_noisy": origs, "dirs_noisy": dirs,
+            "colors": torch.rand((n, 1, 3), generator=gen, device=dev),
+            "img_idx": torch.randint(0, 12, (n,), generator=gen, device=dev)}
+
+
+def phase_garf_train_step(dev):
+    """The GARF `train_step_fused` against `train_step` from one state, batch
+    and generator seed (gauss fp32, gabor bf16 at gamma 0.37): the loss,
+    every gradient handed to Adam, and the update."""
+    import copy
+
+    from nerf_experiments_tpu_torch.systems import garf_system
+
+    for activation, bf16 in (("gauss", False), ("gabor", True)):
+        cfg = garf_system_cfg(activation, bf16)
+        params = garf_system.init(torch.Generator().manual_seed(30), cfg).to(dev)
+        with torch.no_grad():  # a camera away from zero, so its gradients are general
+            params.camera.rotation.normal_(0.0, 0.05,
+                                           generator=torch.Generator(dev).manual_seed(31))
+        batch = garf_batch(1024, torch.Generator(device=dev).manual_seed(32), dev)
+        before = {k: v.clone() for k, v in params.state_dict().items()}
+        out, grads = {}, {}
+        for fused in (False, True):
+            state = garf_system.init_state(cfg, copy.deepcopy(params))
+            grads[fused] = {}
+            adam_step = state.optimizer.step
+
+            def capture_then_step():  # keep the gradients Adam is handed
+                grads[fused].update({k: p.grad.clone()
+                                     for k, p in state.params.named_parameters()})
+                adam_step()
+
+            state.optimizer.step = capture_then_step
+            step = (garf_system.make_train_step_fused(cfg) if fused
+                    else garf_system.make_train_step(cfg))
+            state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(33),
+                                  0.37)
+            out[fused] = (float(metrics["loss"]), state.params.state_dict(),
+                          bool(metrics["grads_finite"]))
+        torch.cuda.synchronize()
+        name = f"{activation} {'bf16' if bf16 else 'fp32'}"
+        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+        require(set(grads[True]) == set(grads[False]) and grads[False],
+                f"GARF {name}: fused and plain steps set gradients on different parameters")
+        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]
+                     if float(grads[False][k].norm()) > 0}
+        worst_g = max(grad_errs, key=grad_errs.get)
+        upd = {k: rel_norm(out[True][1][k] - before[k], out[False][1][k] - before[k])
+               for k in before if float((out[False][1][k] - before[k]).norm()) > 0}
+        worst = max(upd, key=upd.get)
+        log(f"GARF train step {name} (1024 rays, 64 + 192 samples): loss fused "
+            f"{out[True][0]:.6f} plain {out[False][0]:.6f} rel err {loss_err:.3e} (tol "
+            f"{TOL_STEP_LOSS[bf16]}); gradient rel norm err worst {worst_g} "
+            f"{grad_errs[worst_g]:.3e} over {len(grad_errs)} tensors (tol "
+            f"{TOL_STEP_GRAD[bf16]}); Adam update rel norm err worst {worst} {upd[worst]:.3e} "
+            f"over {len(upd)} tensors (tol {TOL_STEP_UPDATE[bf16]})")
+        require(out[True][2] and out[False][2], f"GARF {name}: non-finite gradients")
+        require(loss_err <= TOL_STEP_LOSS[bf16], f"GARF {name}: loss err {loss_err}")
+        for k, v in grad_errs.items():
+            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v),
+                    f"GARF {name}: gradient of {k} err {v}")
+        for k, v in upd.items():
+            require(v <= TOL_STEP_UPDATE[bf16], f"GARF {name}: update of {k} err {v}")
+
+
+def phase_garf_training(dev, workdir):
+    """`garf_main.main --fused_kernel` end to end on a generated 32^2 scene,
+    with the K5, K6 (image logger) and K1 (validation) launches counted:
+    gauss fp32 (train PSNR must rise by > 1 dB), then `--resume`; short
+    gabor bf16 and sarf runs keep the loss finite."""
+    from nerf_experiments_tpu_torch.experiments import garf_main
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_render, garf_radiance_train_grads)
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_fwd_cuda
+
+    def counted(argv):
+        for fn in (render_fwd_cuda, garf_radiance_render, garf_radiance_train_grads):
+            fn.launches = 0
+        state = garf_main.main(argv)
+        torch.cuda.synchronize()
+        return state, {"garf_train": garf_radiance_train_grads.launches,
+                       "garf_render": garf_radiance_render.launches,
+                       "render_fwd": render_fwd_cuda.launches}
+
+    def rows(out):
+        return [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+
+    base = ["--image_size", "32", "--batch_size", "1024", "--log_every_n_steps", "10",
+            "--fused_kernel", "--device", str(dev)]
+    out = os.path.join(workdir, "garf_gauss")
+    steps = 300
+    # garf_main's default radiance LR (2e-4 -> 2e-5 over 6 epochs, an epoch
+    # being 12 steps here) holds the train PSNR at the mean colour's ~11.7 dB
+    # for hundreds of steps at 32^2; ten times it, decaying over the run's 25
+    # epochs, lets the scene's structure appear within this run
+    gauss = base + ["--activation", "gauss", "--out_dir", out,
+                    "--radiance_learning_rate_start", "2e-3",
+                    "--radiance_learning_rate_stop", "2e-4",
+                    "--radiance_learning_rate_decay_end", "25",
+                    "--checkpoint_every_n_epochs", "100"]  # and a checkpoint at the end
+    state, launches = counted(gauss + ["--max_steps", str(steps)])
+    r = rows(out)
+    psnrs = [x["psnr"] for x in r if "psnr" in x and math.isfinite(x["psnr"])]
+    rates = [x["train_rays_per_sec"] for x in r if "train_rays_per_sec" in x]
+    vals = [x["val_psnr"] for x in r if "val_psnr" in x]
+    log(f"garf_main gauss fp32 32^2 batch 1024: {state.step} steps, psnr {psnrs[0]:.3f} -> "
+        f"{psnrs[-1]:.3f} over {len(psnrs)} log rows (validation {vals[0]:.3f} -> "
+        f"{vals[-1]:.3f}, best {max(vals):.3f}), last train_rays_per_sec {rates[-1]:.0f}, "
+        f"launches {launches}")
+    require(state.step == steps, f"gauss run stopped at {state.step}")
+    require(psnrs[-1] > psnrs[0] + 1.0, f"gauss PSNR did not rise by 1 dB: {psnrs}")
+    require(launches["garf_train"] == steps, "gauss: K5 not on every step")
+    require(launches["garf_render"] > 0 and launches["render_fwd"] > 0,
+            "gauss: image logger (K6) or validation (K1) never launched")
+    state, resumed = counted(gauss + ["--max_steps", str(steps + 10), "--resume"])
+    log(f"garf_main --resume: {state.step} steps, launches {resumed}")
+    require(state.step == steps + 10 and resumed["garf_train"] == 10,
+            "resume did not continue from the checkpoint")
+    total = {k: launches[k] + resumed[k] for k in launches}
+    for activation, extra in (("gabor", ["--bf16"]), ("sarf", [])):
+        out = os.path.join(workdir, f"garf_{activation}")
+        state, launches = counted(base + ["--activation", activation, "--max_steps", "20",
+                                          "--out_dir", out] + extra)
+        losses = [x["loss"] for x in rows(out) if "loss" in x]
+        log(f"garf_main {activation} {'bf16' if extra else 'fp32'}: {state.step} steps, loss "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, launches {launches}")
+        require(state.step == 20 and all(math.isfinite(v) for v in losses),
+                f"{activation}: non-finite loss")
+        require(launches["garf_train"] == 20, f"{activation}: K5 not on every step")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def phase_garf_timing(dev):
+    """K5 and its plain version at 4096 x 192, K6 and its plain version at
+    8192 x 192, the fused and plain train steps at batch 4096 (in turns), the
+    proposal stage alone, and a profile of one fused step."""
+    import copy
+
+    from nerf_experiments_tpu_torch.ops import proposal
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_render, garf_radiance_render_reference, garf_radiance_train_grads,
+        garf_radiance_train_grads_reference, train_workspace_bytes)
+    from nerf_experiments_tpu_torch.systems import garf_system
+
+    times = {}
+    for activation, bf16 in (("gauss", False), ("gabor", True)):
+        tag = f"{activation}_{'bf16' if bf16 else 'fp32'}"
+        args = garf_inputs(GARF_RAYS, 192, activation, bf16, 40, dev)
+        args = args[1:2] + args[:1] + args[2:] + (1.0,)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k = cuda_time_ms(lambda: garf_radiance_train_grads(*args), iters=3, warmup=1)
+        mem_k = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = cuda_time_ms(lambda: garf_radiance_train_grads_reference(*args), iters=3, warmup=1)
+        mem_p = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        ws = train_workspace_bytes(args[1], GARF_RAYS, 192) / 2**30
+        times[f"K5_{tag}"] = (k, p)
+        log(f"time K5 garf_train {GARF_RAYS}x192 {tag}: kernel {k:.3f} ms (workspace "
+            f"{ws:.2f} GiB, peak {mem_k:.1f} GiB), plain {p:.3f} ms (peak {mem_p:.1f} GiB)")
+        del args
+        rargs = garf_inputs(2 * GARF_RAYS, 192, activation, bf16, 41, dev)
+        rargs = rargs[1:2] + rargs[:1] + rargs[2:6] + (1.0,)
+        with torch.no_grad():
+            k = cuda_time_ms(lambda: garf_radiance_render(*rargs), iters=3, warmup=1)
+            p = cuda_time_ms(lambda: garf_radiance_render_reference(*rargs), iters=3, warmup=1)
+        times[f"K6_{tag}"] = (k, p)
+        log(f"time K6 garf_render {2 * GARF_RAYS}x192 {tag}: kernel {k:.3f} ms, plain "
+            f"{p:.3f} ms")
+        del rargs
+        torch.cuda.empty_cache()
+
+        cfg = garf_system_cfg(activation, bf16)
+        params = garf_system.init(torch.Generator().manual_seed(42), cfg).to(dev)
+        batch = garf_batch(GARF_RAYS, torch.Generator(device=dev).manual_seed(43), dev)
+        res = {}
+        for fused in (False, True, True, False):
+            state = garf_system.init_state(cfg, copy.deepcopy(params))
+            step = (garf_system.make_train_step_fused(cfg) if fused
+                    else garf_system.make_train_step(cfg))
+            run = lambda: step(state, batch, torch.Generator(device=dev).manual_seed(44), 1.0)
+            res.setdefault(fused, []).append(cuda_time_ms(run, iters=3, warmup=1))
+            del state
+            torch.cuda.empty_cache()
+        k, p = min(res[True]), min(res[False])
+        times[f"step_{tag}"] = (k, p)
+        log(f"GARF train step {tag} ({GARF_RAYS} rays, 64 + 192 samples): fused {res[True]} ms "
+            f"-> {GARF_RAYS / k * 1e3:.0f} rays/s; plain {res[False]} ms -> "
+            f"{GARF_RAYS / p * 1e3:.0f} rays/s")
+
+        def proposal_stage():  # forward, interlevel loss against fixed weights, backward
+            t_s, t_e, aux = garf_system._sample_bins(
+                params, cfg, torch.Generator(device=dev).manual_seed(44),
+                batch["origs_noisy"], batch["dirs_noisy"], True, 1.0)
+            proposal.compute_loss(aux, torch.full_like(t_s, 1.0 / 192)).backward()
+
+        prop_ms = cuda_time_ms(proposal_stage, iters=3, warmup=1)
+        log(f"GARF proposal stage {tag} ({GARF_RAYS} rays, 64 bins, fwd + interlevel loss "
+            f"+ bwd): {prop_ms:.3f} ms")
+        params.zero_grad(set_to_none=True)
+        state = garf_system.init_state(cfg, copy.deepcopy(params))
+        fused_step = garf_system.make_train_step_fused(cfg)
+        profile_step(lambda: fused_step(state, batch,
+                                        torch.Generator(device=dev).manual_seed(44), 1.0),
+                     f"GARF fused train step {tag}")
+        del state, params
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -725,14 +1091,20 @@ def main() -> int:
         run(8, phase_train_step, dev)
         train_launches = run(9, phase_training, dev, workdir)
         train_times = run(10, phase_train_timing, dev)
+        k6_err = run(11, phase_garf_render, dev)
+        k5_err = run(12, phase_garf_train_kernel, dev)
+        run(13, phase_garf_train_step, dev)
+        garf_launches = run(14, phase_garf_training, dev, workdir)
+        garf_times = run(15, phase_garf_timing, dev)
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3,
-    # CUDA events per call for K2 and K4
+    # CUDA events per call for K2, K4, K5 (4096 x 192) and K6 (8192 x 192)
     kernels = {"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
-         "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"],
+         "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
+         + garf_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
@@ -752,6 +1124,16 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:152",
          "launches": train_launches["flagship_train"], "max_abs_err": k4_err,
          "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1]},
+        {"name": "garf_train", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/garf_train.cuh",
+         "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:82",
+         "launches": garf_launches["garf_train"], "max_abs_err": k5_err,
+         "ms": garf_times["K5_gauss_fp32"][0], "plain_ms": garf_times["K5_gauss_fp32"][1]},
+        {"name": "garf_render", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/garf_render.cu",
+         "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:376",
+         "launches": garf_launches["garf_render"], "max_abs_err": k6_err,
+         "ms": garf_times["K6_gauss_fp32"][0], "plain_ms": garf_times["K6_gauss_fp32"][1]},
     ]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

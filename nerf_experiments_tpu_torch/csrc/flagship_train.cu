@@ -26,16 +26,17 @@
 //     with W^T passed transposed so the loads coalesce) and stored per layer;
 //     the encoding backward gives d_pos / d_dirs, summed per ray in a fixed
 //     order;
-//   * phase B: dW = A^T G and db = sum G for every layer, a tiled GEMM over the
-//     rows on the CUDA cores, split over the rows into fixed partials that a
-//     third kernel adds in a fixed order. No atomics: two launches give bitwise
-//     equal gradients.
+//   * phase B (`train_common.cuh`, shared with the GARF train kernel): dW =
+//     A^T G and db = sum G for every layer, a tiled GEMM over the rows on the
+//     CUDA cores, split over the rows into fixed partials that a third kernel
+//     adds in a fixed order. No atomics: two launches give bitwise equal
+//     gradients.
 // With bf16, matmul operands (weights, activations, cotangents) are rounded to
 // bf16 and products accumulate in fp32 where the TPU kernel rounds (`cde`);
 // the bias gradients sum the fp32 cotangents.
 // This is the simple design: FMA loops on the CUDA cores. Tensor cores
 // (mma.sync / wgmma), TMA, and keeping activations on chip are later work.
-#include "flagship_common.cuh"
+#include "train_common.cuh"
 
 namespace {
 
@@ -43,8 +44,6 @@ using namespace netpu;
 
 constexpr int kAux = 6;        // per-row compositing record: raw density, rgb, T, w
 constexpr int kGradRows = 96;  // threads holding a (row, coordinate) geometry partial
-constexpr int kTile = 128;     // phase B output tile (k x n)
-constexpr int kChunk = 32;     // phase B rows per shared-memory stage
 
 struct Transposed {
   const void* w[kMaxLayers];  // (out, in) row-major copies of the weights
@@ -73,11 +72,6 @@ struct Layout {
   __host__ __device__ int m_c0() const { return (2 * L - 1) * D; }
   __host__ __device__ int mask_width() const { return (2 * L - 1) * D + C; }
 };
-
-__device__ __forceinline__ float load_act(const float* p) { return *p; }
-__device__ __forceinline__ float load_act(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 // Backward through one dense layer for the chunk's rows: t[r][k] =
 // sum_n g[r][n] * Wt[n][k] for k < K1 + K2, Wt the (n_in, K1 + K2) transposed
@@ -378,149 +372,35 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
   }
 }
 
-// ---- phase B: dW = A^T G, db = sum_rows G ----
+// ---- phase B: dW = A^T G, db = sum_rows G (train_common.cuh) ----
 
-struct GemmLayer {
-  int a1, k1, a2, k2;  // input columns: act[a1 : a1 + k1] then act[a2 : a2 + k2]
-  int g, n;            // cotangent columns cot[g : g + n]
-  int w_off, b_off;    // offsets of dW (k1 + k2, n) and db (n) in the flat output
-  int tiles_n, first_tile;
-};
-
-struct GemmPlan {
-  GemmLayer layer[kMaxLayers];
-  int n_layers, tiles, wtot, btot;
-  int AW, GW;
-  long long rows, rows_per_split;
-};
-
-// One kTile x kTile tile of one layer's dW over one split of the rows. Each
-// thread owns an 8 x 8 block of the tile (two 4-wide groups on each axis, so
-// the shared-memory reads are conflict-free float4 broadcasts). Blocks of the
-// first k-tile also sum the fp32 cotangents for db.
 template <typename AT, bool kBf16>
 __global__ void __launch_bounds__(256)
 dw_partial_kernel(const AT* __restrict__ act, const float* __restrict__ cot, GemmPlan plan,
                   float* __restrict__ part) {
-  __shared__ __align__(16) float As[kChunk][kTile];
-  __shared__ __align__(16) float Gs[kChunk][kTile];
-  __shared__ float red[256];
-  const int tid = threadIdx.x;
-  int li = 0;
-  while (li + 1 < plan.n_layers && static_cast<int>(blockIdx.x) >= plan.layer[li + 1].first_tile)
-    ++li;
-  const GemmLayer ly = plan.layer[li];
-  const int t = blockIdx.x - ly.first_tile;
-  const int k0 = (t / ly.tiles_n) * kTile, n0 = (t % ly.tiles_n) * kTile;
-  const int K = ly.k1 + ly.k2;
-  const long long r_begin = static_cast<long long>(blockIdx.y) * plan.rows_per_split;
-  const long long r_end = min(plan.rows, r_begin + plan.rows_per_split);
-  const int tx = tid & 15, ty = tid >> 4;
-  const int col = tid & (kTile - 1);  // the column this thread loads
-  const int ka = k0 + col, ng = n0 + col;
-  const int a_col = ka < ly.k1 ? ly.a1 + ka : (ka < K ? ly.a2 + ka - ly.k1 : -1);
-  const bool g_live = ng < ly.n;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float db = 0.f;
-  for (long long r0 = r_begin; r0 < r_end; r0 += kChunk) {
-    for (int e = tid; e < kChunk * kTile; e += 256) {
-      const int rr = e / kTile;
-      const long long row = r0 + rr;
-      const bool live = row < r_end;
-      As[rr][col] = (live && a_col >= 0) ? load_act(act + row * plan.AW + a_col) : 0.f;
-      const float g = (live && g_live) ? cot[row * plan.GW + ly.g + ng] : 0.f;
-      db += g;
-      Gs[rr][col] = cde<kBf16>(g);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float4 al = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 ah = *reinterpret_cast<const float4*>(&As[rr][64 + ty * 4]);
-      const float4 gl = *reinterpret_cast<const float4*>(&Gs[rr][tx * 4]);
-      const float4 gh = *reinterpret_cast<const float4*>(&Gs[rr][64 + tx * 4]);
-      const float a[8] = {al.x, al.y, al.z, al.w, ah.x, ah.y, ah.z, ah.w};
-      const float g[8] = {gl.x, gl.y, gl.z, gl.w, gh.x, gh.y, gh.z, gh.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + static_cast<size_t>(blockIdx.y) * (plan.wtot + plan.btot);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (k < K && n < ly.n) out[ly.w_off + k * ly.n + n] = acc[i][j];
-    }
-  }
-  if (k0 == 0) {  // uniform over the block
-    red[tid] = db;
-    __syncthreads();
-    if (tid < kTile && g_live) out[plan.wtot + ly.b_off + ng] = red[tid] + red[tid + kTile];
-  }
-}
-
-// out[i] = sum over splits of part[split][i], in split order.
-__global__ void dw_reduce_kernel(const float* __restrict__ part, int total, int splits,
-                                 float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int p = 0; p < splits; ++p) s += part[static_cast<size_t>(p) * total + i];
-  out[i] = s;
+  __shared__ __align__(16) DwSmem sm;
+  dw_tile_stored<kBf16>(act, cot, plan, DwTile(plan), sm, part);
 }
 
 GemmPlan make_plan(const Layout& lay, long long rows, int splits) {
-  GemmPlan plan{};
+  GemmPlan plan(lay.act_width(), lay.cot_width(), rows, splits);
   const int L = lay.L, D = lay.D;
-  plan.n_layers = 2 * L + 2;
-  plan.AW = lay.act_width();
-  plan.GW = lay.cot_width();
-  plan.rows = rows;
-  plan.rows_per_split = (rows + splits - 1) / splits;
-  int w_off = 0, b_off = 0, tiles = 0;
-  for (int l = 0; l < plan.n_layers; ++l) {
-    GemmLayer& ly = plan.layer[l];
-    ly.a2 = 0;
-    ly.k2 = 0;
+  for (int l = 0; l < 2 * L + 2; ++l) {
+    const int n = l < 2 * L - 1 ? D : (l == 2 * L - 1 ? D + 1 : (l == 2 * L ? lay.C : 3));
     if (l == 0) {
-      ly.a1 = 0; ly.k1 = lay.P;                        // pos_enc
+      plan.add(0, lay.P, 0, 0, lay.g(l), n);                        // pos_enc
     } else if (l < L) {
-      ly.a1 = lay.h1(l - 1); ly.k1 = D;
+      plan.add(lay.h1(l - 1), D, 0, 0, lay.g(l), n);
     } else if (l == L) {
-      ly.a1 = lay.h1(L - 1); ly.k1 = D;                // [z | pos_enc]
-      ly.a2 = 0; ly.k2 = lay.P;
+      plan.add(lay.h1(L - 1), D, 0, lay.P, lay.g(l), n);            // [z | pos_enc]
     } else if (l <= 2 * L - 1) {
-      ly.a1 = lay.h2(l - L - 1); ly.k1 = D;
+      plan.add(lay.h2(l - L - 1), D, 0, 0, lay.g(l), n);
     } else if (l == 2 * L) {
-      ly.a1 = lay.hid(); ly.k1 = D;                    // [hidden | dir_enc]
-      ly.a2 = lay.P; ly.k2 = lay.Q;
+      plan.add(lay.hid(), D, lay.P, lay.Q, lay.g(l), n);            // [hidden | dir_enc]
     } else {
-      ly.a1 = lay.c0(); ly.k1 = lay.C;
+      plan.add(lay.c0(), lay.C, 0, 0, lay.g(l), n);
     }
-    ly.n = l < 2 * L - 1 ? D : (l == 2 * L - 1 ? D + 1 : (l == 2 * L ? lay.C : 3));
-    ly.g = lay.g(l);
-    ly.w_off = w_off;
-    ly.b_off = b_off;
-    ly.tiles_n = (ly.n + kTile - 1) / kTile;
-    ly.first_tile = tiles;
-    w_off += (ly.k1 + ly.k2) * ly.n;
-    b_off += ly.n;
-    tiles += ((ly.k1 + ly.k2 + kTile - 1) / kTile) * ly.tiles_n;
   }
-  plan.tiles = tiles;
-  plan.wtot = w_off;
-  plan.btot = b_off;
   return plan;
 }
 
@@ -555,9 +435,10 @@ cudaError_t launch(const float* origs, const float* dirs, const float* t_start,
                                                          plan, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = plan.wtot + plan.btot;
-  dw_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(part, total, splits, grads);
-  return cudaGetLastError();
+  Segments all{};
+  all.n = 1;
+  all.begin[1] = plan.wtot + plan.btot;
+  return reduce(part, splits, all, grads, stream);
 }
 
 }  // namespace

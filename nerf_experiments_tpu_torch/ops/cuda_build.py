@@ -8,7 +8,9 @@ file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates nothing,
-and returns `cudaGetLastError()`; `check` raises on a non-zero code.
+and returns `cudaGetLastError()`; `check` raises on a non-zero code. The
+helpers at the end (`check_rays`, `is_bf16`, `device_weights`, `pointers`)
+prepare the arguments the radiance-field wrappers pass.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,6 +57,15 @@ SIGNATURES = {
     "netpu_flagship_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _I, _I,
                              _P, _I, _P, _P, _P, _P, _P, _P],
+    # origs, dirs, t_start, t_end, w_ptrs, b_ptrs, p1_ptrs, p2_ptrs, activation,
+    # bf16, n_rays, S, gamma, density_scale, out, stream
+    "netpu_garf_render": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P] * 2,
+    # origs, dirs, t_start, t_end, targets, w_ptrs, b_ptrs, wt_ptrs, p1_ptrs,
+    # p2_ptrs, activation, bf16, n_rays, S, gamma, density_scale, grad_scale,
+    # act, cot, aux, ray_part, act_width, cot_width, part_width, part, splits,
+    # grads, rgb_out, weights_out, d_origs, d_dirs, stream
+    "netpu_garf_train": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P] * 4 + [_I] * 3
+                        + [_P, _I] + [_P] * 6,
 }
 
 
@@ -136,3 +149,39 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().netpu_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
+
+
+def check_rays(n: int, s: int, dev, **tensors) -> None:
+    """Refuse a ray tensor that is not a contiguous fp32 one of its shape on
+    `dev`: origs, dirs, targets (n, 3); t_start, t_end (n, s)."""
+    shapes = {"origs": (n, 3), "dirs": (n, 3), "targets": (n, 3),
+              "t_start": (n, s), "t_end": (n, s)}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shapes[name] or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {shapes[name]}, got "
+                             f"{tuple(t.shape)}")
+
+
+def is_bf16(cfg) -> bool:
+    """Whether a config's `compute_dtype` asks for bf16 (None is fp32)."""
+    if cfg.compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype} is not supported")
+    return cfg.compute_dtype == torch.bfloat16
+
+
+def device_weights(layers, dev, bf16: bool):
+    """The layers' weights in the compute type and fp32 biases, contiguous on
+    `dev`."""
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    ws = [l.w.detach().to(dev, wdt).contiguous() for l in layers]
+    bs = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
+    return ws, bs
+
+
+def pointers(tensors) -> ctypes.c_void_p:
+    """A C array of the tensors' device pointers (None -> null)."""
+    arr = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    return ctypes.cast(arr, ctypes.c_void_p)

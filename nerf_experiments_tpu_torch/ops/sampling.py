@@ -114,3 +114,41 @@ def sample_pdf_weighted_intervals(
     edges = torch.cat([t_coarse_start, t_coarse_end[:, -1:]], dim=1)
     t = sample_pdf(edges, weights, n_samples, generator=generator)
     return intervals_from_t(t, far)
+
+
+def unit_edges(
+    n_rays: int,
+    n_bins: int,
+    stratified: bool,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> torch.Tensor:
+    """Bin edges uniform in [0, 1], (N, B+1). With stratified=True the
+    interior edges are jittered inside their cells from `generator`; the end
+    edges stay pinned."""
+    s = torch.linspace(0.0, 1.0, n_bins + 1, device=device).expand(n_rays, n_bins + 1)
+    if stratified:
+        if generator is None:
+            raise ValueError("stratified edges require a generator")
+        jitter = (torch.rand((n_rays, n_bins + 1), generator=generator, device=device)
+                  - 0.5) / n_bins
+        jitter[:, 0] = 0.0
+        jitter[:, -1] = 0.0
+        s = s + jitter
+    return s
+
+
+def lindisp_edges(
+    n_rays: int,
+    n_bins: int,
+    near: float,
+    far: float,
+    stratified: bool,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> torch.Tensor:
+    """Bin edges uniform in inverse depth (nerfacc "lindisp"), (N, B+1):
+    `unit_edges` in s-space (s = normalized inverse depth), then
+    1/t = (1-s)/near + s/far."""
+    s = unit_edges(n_rays, n_bins, stratified, generator, device)
+    return 1.0 / ((1.0 - s) / near + s / far)

@@ -15,7 +15,6 @@ or the call raises.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Dict, Tuple
 
@@ -24,6 +23,8 @@ import torch
 from nerf_experiments_tpu_torch.encodings.fourier import Barf
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.ops import cuda_build, render, sampling
+from nerf_experiments_tpu_torch.ops.cuda_build import (
+    check_rays, device_weights, is_bf16, pointers)
 from nerf_experiments_tpu_torch.ops.render import DENSITY_SCALE
 
 
@@ -81,36 +82,6 @@ def _layer_names(params: nerf_mlp.NerfMLP):
     return names + [f"color.{k}" for k in range(len(params.color))]
 
 
-def _check_rays(n, s, dev, **tensors):
-    shapes = {"origs": (n, 3), "dirs": (n, 3), "targets": (n, 3),
-              "t_start": (n, s), "t_end": (n, s)}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shapes[name] or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {shapes[name]}, got "
-                             f"{tuple(t.shape)}")
-
-
-def _bf16(cfg) -> bool:
-    if cfg.compute_dtype not in (None, torch.bfloat16):
-        raise ValueError(f"compute_dtype {cfg.compute_dtype} is not supported")
-    return cfg.compute_dtype == torch.bfloat16
-
-
-def _weights(layers, dev, bf16: bool):
-    """Weights in the compute type and fp32 biases, contiguous on `dev`."""
-    wdt = torch.bfloat16 if bf16 else torch.float32
-    ws = [l.w.detach().to(dev, wdt).contiguous() for l in layers]
-    bs = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
-    return ws, bs
-
-
-def _pointers(tensors):
-    arr = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    return ctypes.cast(arr, ctypes.c_void_p)
-
-
 def flagship_render(
     params: nerf_mlp.NerfMLP,
     cfg: nerf_mlp.NerfMLPConfig,
@@ -140,10 +111,10 @@ def flagship_render(
     layers = _layers(params)
     n, s = t_start.shape
     dev = origs.device
-    _check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end)
-    bf16 = _bf16(cfg)
+    check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end)
+    bf16 = is_bf16(cfg)
     lib = cuda_build.library()
-    ws, bs = _weights(layers, dev, bf16)
+    ws, bs = device_weights(layers, dev, bf16)
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
 
@@ -153,7 +124,7 @@ def flagship_render(
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.netpu_flagship_render(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
-            _pointers(ws), _pointers(bs),
+            pointers(ws), pointers(bs),
             len(layers), int(bf16), n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), alpha_pos, alpha_dir, float(density_scale),
             out.data_ptr(), None if weights is None else weights.data_ptr(), stream)
@@ -247,11 +218,11 @@ def flagship_train_grads(
     layers = _layers(params)
     n, s = t_start.shape
     dev = origs.device
-    _check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end,
-                targets=targets)
-    bf16 = _bf16(cfg)
+    check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end,
+               targets=targets)
+    bf16 = is_bf16(cfg)
     lib = cuda_build.library()
-    ws, bs = _weights(layers, dev, bf16)
+    ws, bs = device_weights(layers, dev, bf16)
     wts = [w.t().contiguous() for w in ws]
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
@@ -276,7 +247,7 @@ def flagship_train_grads(
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.netpu_flagship_train(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
-            targets.data_ptr(), _pointers(ws), _pointers(bs), _pointers(wts),
+            targets.data_ptr(), pointers(ws), pointers(bs), pointers(wts),
             len(layers), int(bf16), n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             2.0 * float(loss_scale) / (n * 3.0), act.data_ptr(), cot.data_ptr(),

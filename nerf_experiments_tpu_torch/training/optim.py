@@ -1,4 +1,4 @@
-"""Multi-group Adam with per-group LR schedules, on `torch.optim.Adam`.
+"""Multi-group Adam with per-group LR schedules, on `torch.optim.AdamW`.
 
 Port of the JAX package's `training/optim.py` (optax): one Adam param group
 per label, each with its own schedule, eps and freeze window. It reproduces
@@ -19,7 +19,11 @@ What matches optax, step for step:
   * `guard_nonfinite` zeroes every gradient when any is non-finite, and the
     Adam update still runs: the moments decay and the parameters move by
     momentum, exactly as optax does on a zeroed gradient tree. Gradients are
-    set as zero tensors, never None, which torch would skip.
+    set as zero tensors, never None, which torch would skip;
+  * a group's weight decay is optax's `add_decayed_weights` after
+    `scale_by_adam`: p <- p - lr (adam_update + wd p), which is AdamW's
+    decoupled decay with the group's own `weight_decay` (0 elsewhere). It
+    applies on guarded steps too, and not in a freeze window (lr 0).
 """
 from __future__ import annotations
 
@@ -78,24 +82,20 @@ def guard_nonfinite(params: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class MultiGroupAdam:
-    """torch.optim.Adam with one param group per label, LRs from schedules."""
+    """torch.optim.AdamW with one param group per label, LRs from schedules."""
 
     def __init__(self, groups: Dict[str, ParamGroup],
                  params_by_label: Dict[str, List[torch.Tensor]], eps: float = 1e-5,
                  schedule_kind: str = "le_nice", adam_b1: float = 0.9,
                  adam_b2: float = 0.999, scheduler_steps_per_period: int = 1):
-        for label, g in groups.items():
-            if g.weight_decay:
-                raise NotImplementedError(
-                    f"group {label!r}: weight decay (the INGP recipe) is not ported yet "
-                    "(ROADMAP A12)")
         self.groups = dict(groups)
         self.schedules = group_lr_schedules(groups, schedule_kind, scheduler_steps_per_period)
-        self.adam = torch.optim.Adam(
+        self.adam = torch.optim.AdamW(
             [{"params": list(params_by_label[label]), "label": label,
-              "eps": eps if g.adam_eps is None else g.adam_eps, "lr": 0.0}
+              "eps": eps if g.adam_eps is None else g.adam_eps, "lr": 0.0,
+              "weight_decay": g.weight_decay}
              for label, g in groups.items()],
-            lr=0.0, betas=(adam_b1, adam_b2), eps=eps)
+            lr=0.0, betas=(adam_b1, adam_b2), eps=eps, weight_decay=0.0)
         self.count = 0  # updates taken: the schedules' step
 
     def params(self) -> List[torch.Tensor]:

@@ -31,7 +31,16 @@ def test_port_imports_no_jax():
             "nerf_experiments_tpu_torch.training.optim",
             "nerf_experiments_tpu_torch.training.schedules",
             "nerf_experiments_tpu_torch.training.loggers",
-            "nerf_experiments_tpu_torch.training.trainer"} <= set(mods)
+            "nerf_experiments_tpu_torch.training.trainer",
+            "nerf_experiments_tpu_torch.experiments.garf_main",
+            "nerf_experiments_tpu_torch.experiments.gaborf_main",
+            "nerf_experiments_tpu_torch.experiments.sarf_main",
+            "nerf_experiments_tpu_torch.experiments.run_garf_test",
+            "nerf_experiments_tpu_torch.systems.garf_system",
+            "nerf_experiments_tpu_torch.ops.garf_megakernel",
+            "nerf_experiments_tpu_torch.ops.proposal",
+            "nerf_experiments_tpu_torch.models.garf",
+            "nerf_experiments_tpu_torch.encodings.activations"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,10 +65,14 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_kernel_sources_and_entry_points():
     cu, headers = cuda_build._sources()
-    assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu"}
-    assert {f.name for f in headers} >= {"flagship_common.cuh"}
+    assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu",
+                                    "garf_render.cu", "garf_train.cu", "garf_train_gauss.cu",
+                                    "garf_train_gabor.cu", "garf_train_sarf.cu"}
+    assert {f.name for f in headers} >= {"flagship_common.cuh", "garf_common.cuh",
+                                         "train_common.cuh", "garf_train.cuh"}
     assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render",
-                                          "netpu_render_bwd", "netpu_flagship_train"}
+                                          "netpu_render_bwd", "netpu_flagship_train",
+                                          "netpu_garf_render", "netpu_garf_train"}
 
 
 class FakeCuda(torch.Tensor):
@@ -81,11 +94,15 @@ def kernel_calls():
     from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
         flagship_render, flagship_train_grads)
-    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.models import garf, nerf_mlp
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_render, garf_radiance_train_grads)
 
     n, s = 4, 8
     cfg = dataclasses.replace(mlp_cfg(8, 2), n_hidden=1)
     params = nerf_mlp.init(torch.Generator().manual_seed(0), cfg)
+    gcfg = garf.GarfConfig(activation="gabor")
+    gparams = garf.radiance_init(torch.Generator().manual_seed(0), gcfg)
     rays = lambda: (fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, s), fake_cuda(n, s))
     return {
         "render_rays": lambda: render.render_rays_auto(fake_cuda(n, s), fake_cuda(n, s, 3),
@@ -98,11 +115,15 @@ def kernel_calls():
         "flagship_render": lambda: flagship_render(params, cfg, *rays()),
         "flagship_train": lambda: flagship_train_grads(params, cfg, *rays(), fake_cuda(n, 3),
                                                        1.0, 1.0),
+        "garf_render": lambda: garf_radiance_render(gparams, gcfg, *rays(), 0.5),
+        "garf_train": lambda: garf_radiance_train_grads(gparams, gcfg, *rays(),
+                                                        fake_cuda(n, 3), 0.5),
     }
 
 
 @pytest.mark.parametrize("entry", ["flagship_render", "flagship_train", "render_bwd",
-                                   "render_full", "render_rays"])
+                                   "render_full", "render_rays", "garf_render",
+                                   "garf_train"])
 def test_cuda_tensor_without_nvcc_raises_the_nvcc_error(entry, tmp_path, monkeypatch):
     """A CUDA tensor goes to the kernel or the call raises: never a silent
     fall back to the plain version."""
@@ -160,6 +181,17 @@ def test_training_entry_is_not_ported_yet(argv):
 
     with pytest.raises(NotImplementedError, match="not ported"):
         run_barf.main(argv)
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--conv_blur"],
+                                  ["--train_coarse_block", "4"]])
+def test_garf_entry_refuses_what_is_not_ported(argv):
+    """`garf_main.main` trains; its multi-device, target-blur and
+    block-coarse options refuse before any data is generated."""
+    from nerf_experiments_tpu_torch.experiments import garf_main
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        garf_main.main(argv)
 
 
 def test_fused_forward_needs_a_flagship_config():
