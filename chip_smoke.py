@@ -15,8 +15,8 @@ Phases, each raising on failure:
      the kernels were launched, and that a crop of the render agrees with the
      plain CPU path;
   5. time kernel and plain paths at the 8192-ray serving chunk: the
-     compositing kernel by its `torch.profiler` device time per call, the
-     rest with CUDA events;
+     compositing kernel by its `torch.profiler` device time per call on
+     inputs rotated past the L2 (`cold_copies`), the rest with CUDA events;
   6. hold the compositing backward kernel against `render_bwd_reference`;
   7. hold the flagship train kernel against `flagship_train_grads_reference`
      at the flagship width (1024 rays: fp32, bf16, fp32 with loss_scale and
@@ -32,7 +32,8 @@ Phases, each raising on failure:
      launches counted, `--resume`, and `render_views` on the checkpoint;
  10. time the train step (fused against plain) and the kernels alone at
      8192 rays (the compositing backward by its `torch.profiler` device
-     time per call), and profile one fused step of each config;
+     time per call on inputs rotated past the L2), and profile one fused step
+     of each config;
  11. hold the GARF render kernel (K6) against
      `garf_radiance_render_reference` for gauss, gabor and sarf, fp32 and
      bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a ragged 50;
@@ -49,13 +50,34 @@ Phases, each raising on failure:
      gabor bf16 and sarf runs), with K5, K6 and K1 launches counted;
  15. time K5 (4096 x 192) and K6 (8192 x 192) against their plain versions,
      the GARF train step fused against plain at 4096 rays, the proposal
-     stage, and profile one fused GARF step.
+     stage, and profile one fused GARF step;
+ 16. hold the hash-grid forward kernel (K7) against `encode_reference`: 3-D
+     at run_3d_ingp's defaults and 524,288 points, 2-D at run_2d_ingp's, F =
+     8 at 4 levels; xor and additive hash, fp32 and bf16 rows; N(0, 1)
+     tables, points on grid vertices and at 0; relative norm 1e-5;
+ 17. hold the hash-grid backward kernel (K8) against
+     the plain backward (autograd through `encode_reference`) for the same
+     settings (d_table, d_x), and two launches against each other (d_table
+     by tolerance: fp32 atomics);
+ 18. one INGP train step through K7 / K8 against the same step with the
+     plain encoding (fp32, bf16): the loss and every gradient handed to Adam;
+ 19. the INGP entry points end to end with K7, K8, K1 and K3 counted:
+     `run_3d_ingp.main` at full width on a generated 64^2 scene (300 steps
+     fp32 with checkpoints: the train PSNR must rise by > 1 dB; 20 steps
+     bf16), `render_views --entry ingp` on the checkpoint (a crop against the
+     plain CPU path), `run_2d_ingp.main` at its defaults (val PSNR > 12 dB);
+ 20. time K7 / K8 at 524,288 points against their plain versions and the
+     library calls of their table access (`index_select`, `index_add_`),
+     the INGP train step with kernels against the plain encoding at 4096
+     rays, and profile one step.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
-from the plain version over the outputs of that kernel's fp32 checks); the
-last is `{"ok": true, "device": {...}}`. Without a CUDA device it exits
-non-zero.
+from the plain version over the outputs of that kernel's fp32 checks;
+`bound_ms` the least time the card could take for the timed call, from its
+shapes, `kernel_bounds`; `library_ms` the one PyTorch call that does the same
+work, or null); the last is `{"ok": true, "device": {...}}`. Without a CUDA
+device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -126,24 +148,39 @@ def cuda_time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, calls: int = 200) -> float:
+def device_ms(fn, calls: int = 200, arg_sets=((),)) -> float:
     """Device time per call: the self time of every CUDA event (kernels,
     copies, fills) that `torch.profiler` records over `calls` back-to-back
     calls, divided by `calls`. For kernels whose launch costs more host time
-    than they run, where CUDA events would time the host."""
+    than they run, where CUDA events would time the host. Call i is
+    `fn(*arg_sets[i % len(arg_sets)])`: with the sets of `cold_copies`, each
+    call reads its inputs from HBM, not from the L2 an earlier call filled."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(10):
-        fn()
+    for i in range(10):
+        fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type.name == "CUDA")
     require(total_us > 0, "torch.profiler recorded no device time")
     return total_us / 1e3 / calls
+
+
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
+
+
+def cold_copies(*args) -> list:
+    """`args` and copies of it (tensors cloned, the rest shared) that hold
+    four times the L2 together: timed in turn by `device_ms`, every call's
+    inputs come from HBM, as the bytes bound of `kernel_bounds` assumes."""
+    n_bytes = sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    copies = max(1, math.ceil(4 * L2_BYTES / n_bytes))
+    return [args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                     for _ in range(copies - 1)]
 
 
 def flagship_cfg(bf16: bool, hidden_dim=256, n_hidden=4, n_segments=2):
@@ -560,8 +597,8 @@ def phase_train_timing(dev):
 
     gen = torch.Generator(device=dev).manual_seed(12)
     times = {}
-    # K3 by device time over 200 back-to-back calls, at the north-star coarse
-    # shape (S = 64) and S = 128
+    # K3 by device time over 200 back-to-back calls, each on inputs out of
+    # L2, at the north-star coarse shape (S = 64) and S = 128
     for s in (64, 128):
         dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
         colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
@@ -570,12 +607,14 @@ def phase_train_timing(dev):
         dists, tmid = (te - ts).contiguous(), ((ts + te) / 2).contiguous()
         g = [torch.randn((N_RAYS, s), generator=gen, device=dev) for _ in range(2)]
         gs = torch.randn((N_RAYS, 5), generator=gen, device=dev)
-        bwd_args = (dens, dists, tmid, colors, g[0], g[1], gs, render.DENSITY_SCALE)
-        k = device_ms(lambda: render_bwd_cuda(*bwd_args))
-        p = device_ms(lambda: render.render_bwd_reference(*bwd_args))
+        sets = cold_copies(dens, dists, tmid, colors, g[0], g[1], gs, render.DENSITY_SCALE)
+        k = device_ms(render_bwd_cuda, arg_sets=sets)
+        p = device_ms(render.render_bwd_reference, arg_sets=sets)
         times[f"K3_S{s}"] = (k, p)
         log(f"time K3 compositing backward {N_RAYS}x{s} fp32, device time per call over "
-            f"200 calls: kernel {k:.4f} ms, plain {p:.4f} ms")
+            f"200 calls rotating {len(sets)} input sets (inputs from HBM): kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms")
+        del sets
     # K4 alone at the dense and north-star fine shapes
     origs, dirs = random_rays(N_RAYS, gen, dev)
     targets = torch.rand((N_RAYS, 3), generator=gen, device=dev)
@@ -635,7 +674,7 @@ def plain_forward(params, cfg, origs, dirs, pw):
     if cfg.use_proposal:
         ts, te = sampling.sample_stratified(None, n, cfg.samples_per_ray_proposal, cfg.near,
                                             cfg.far, "equidistant", device=origs.device)
-        dens, rgb = barf_sys._eval_model(barf_sys._proposal_model(params, cfg), origs, dirs,
+        dens, rgb = barf_sys._eval_model(*barf_sys._proposal_model(params, cfg), origs, dirs,
                                          ts, te, pw, a_pos, 4.0, "middle")
         _, w = render.render_rays(dens, rgb, te - ts)
         ts, te = sampling.sample_pdf_weighted_intervals(ts, te, w, cfg.samples_per_ray_radiance,
@@ -658,18 +697,23 @@ def phase_timing(dev, exps):
     gen = torch.Generator(device=dev).manual_seed(4)
     times = {}
     # K1 by device time over 200 back-to-back calls (its launch takes longer
-    # on the host than it runs), at the north-star coarse shape (S = 64) and
-    # S = 128
+    # on the host than it runs), each on inputs out of L2, at the north-star
+    # coarse shape (S = 64) and S = 128
     for s in (64, 128):
         dens = torch.rand((N_RAYS, s), generator=gen, device=dev) * 8.0
         colors = torch.rand((N_RAYS, s, 3), generator=gen, device=dev)
         ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant", device=dev)
         dists, tmid = (te - ts).contiguous(), ((ts + te) / 2).contiguous()
-        k = device_ms(lambda: render_fwd_cuda(dens, dists, tmid, colors, render.DENSITY_SCALE))
-        p = device_ms(lambda: render.render_full(dens, colors, ts, te))
+        sets = cold_copies(dens, dists, tmid, colors, ts, te)
+        k = device_ms(lambda d, dt, tm, c, *_: render_fwd_cuda(d, dt, tm, c, render.DENSITY_SCALE),
+                      arg_sets=sets)
+        p = device_ms(lambda d, dt, tm, c, t0, t1: render.render_full(d, c, t0, t1),
+                      arg_sets=sets)
         times[f"K1_S{s}"] = (k, p)
-        log(f"time K1 compositing {N_RAYS}x{s} fp32, device time per call over 200 calls: "
-            f"kernel {k:.4f} ms, plain {p:.4f} ms")
+        log(f"time K1 compositing {N_RAYS}x{s} fp32, device time per call over 200 calls "
+            f"rotating {len(sets)} input sets (inputs from HBM): kernel {k:.4f} ms, plain "
+            f"{p:.4f} ms")
+        del sets
     # K2 at the slice's fine shapes
     origs, dirs = random_rays(N_RAYS, gen, dev)
     with torch.no_grad():
@@ -1047,6 +1091,444 @@ def phase_garf_timing(dev):
     return times
 
 
+INGP_RAYS = 4096  # bench.py's `ingp` batch
+INGP_POINTS = INGP_RAYS * 128  # the fine stage's samples at that batch
+INGP_IMAGE = 64
+# K7 / K8: relative norm against the plain version; summation order and FMA
+# contraction only (both round the same rows to bf16 when asked), plus the
+# order of K8's atomics.
+TOL_HASH = 1e-5
+HASH_GRIDS = (  # (name, HashGridConfig kwargs, points)
+    ("3-D L16 F2 res 16-512", dict(dim=3), INGP_POINTS),
+    ("2-D L16 F2 res 16-2048", dict(dim=2, resolution_max=2048), 8192),
+    ("3-D L4 F8 res 16-512", dict(dim=3, n_levels=4, n_features=8), 65536),
+)
+HASH_VARIANTS = (("xor", None), ("xor", torch.bfloat16), ("additive", None),
+                 ("additive", torch.bfloat16))
+
+
+def hash_inputs(grid_kw: dict, n: int, seed: int, dev):
+    """An N(0, 1) table and n points: random in [0, 1), a quarter of them on
+    the grid vertices k / 2^m (exact in fp32 at every level's resolution
+    where k res / 2^m is whole), and the origin."""
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    cfg = hashgrid.HashGridConfig(**grid_kw)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((cfg.n_levels, cfg.table_size, cfg.n_features), generator=gen,
+                        device=dev)
+    x = torch.rand((n, cfg.dim), generator=gen, device=dev)
+    m = n // 4
+    denom = torch.tensor([16.0, 256.0, 512.0], device=dev)[
+        torch.randint(0, 3, (m, 1), generator=gen, device=dev)]
+    x[:m] = torch.floor(torch.rand((m, cfg.dim), generator=gen, device=dev) * denom) / denom
+    x[0] = 0.0
+    return cfg, table, x
+
+
+def phase_hash_forward(dev):
+    """K7 against `encode_reference` on the card: 3-D at run_3d_ingp's
+    defaults and 524,288 points, 2-D at run_2d_ingp's, and F = 8 at 4
+    levels; xor and additive, fp32 and bf16 rows."""
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    worst_abs_fp32 = 0.0
+    for name, grid_kw, n in HASH_GRIDS:
+        cfg, table, x = hash_inputs(grid_kw, n, 50, dev)
+        for hash_kind, gather in HASH_VARIANTS:
+            got = hashgrid.hash_encode_fwd_cuda(table, x, cfg, hash_kind, gather)
+            ref = hashgrid.encode_reference(table, cfg, x, hash_kind, gather)
+            torch.cuda.synchronize()
+            err, abs_err = rel_norm(got, ref), max_err(got, ref)
+            log(f"K7 hash_encode_fwd {name}, {n} points, {hash_kind} "
+                f"{'bf16' if gather else 'fp32'} rows: rel norm err {err:.3e}, max abs err "
+                f"{abs_err:.3e}, tol {TOL_HASH}")
+            require(err <= TOL_HASH and math.isfinite(err), f"K7 {name} {hash_kind} {gather}")
+            if gather is None:
+                worst_abs_fp32 = max(worst_abs_fp32, abs_err)
+        del table, x
+    torch.cuda.empty_cache()
+    return worst_abs_fp32
+
+
+def plain_hash_grads(table, cfg, x, g, hash_kind="xor", gather=None):
+    """(d_table, d_x) of the plain version: torch autograd through
+    `encode_reference` for the cotangent g (its forward included)."""
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    table, x = table.detach().requires_grad_(True), x.detach().requires_grad_(True)
+    enc = hashgrid.encode_reference(table, cfg, x, hash_kind, gather)
+    return torch.autograd.grad(enc, (table, x), g)
+
+
+def phase_hash_backward(dev):
+    """K8 against the plain backward (`plain_hash_grads`) for the same
+    settings: d_table and d_x by relative norm, and two launches against each
+    other (d_table by the same tolerance: fp32 atomics add in no fixed order;
+    d_x bitwise)."""
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    worst_abs_fp32 = 0.0
+    for name, grid_kw, n in HASH_GRIDS:
+        cfg, table, x = hash_inputs(grid_kw, n, 51, dev)
+        g = torch.randn((n, cfg.output_dim), generator=torch.Generator(dev).manual_seed(52),
+                        device=dev)
+        for hash_kind, gather in HASH_VARIANTS:
+            got = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, gather)
+            again = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, gather)
+            ref = plain_hash_grads(table, cfg, x, g, hash_kind, gather)
+            torch.cuda.synchronize()
+            errs = {"d_table": rel_norm(got[0], ref[0]), "d_x": rel_norm(got[1], ref[1]),
+                    "d_table two launches": rel_norm(got[0], again[0])}
+            abs_err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+            log(f"K8 hash_encode_bwd {name}, {n} points, {hash_kind} "
+                f"{'bf16' if gather else 'fp32'} rows: rel norm err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (d_table bitwise equal over two launches: "
+                f"{torch.equal(got[0], again[0])}), max abs err {abs_err:.3e}, tol {TOL_HASH}")
+            for k, v in errs.items():
+                require(v <= TOL_HASH and math.isfinite(v), f"K8 {name} {hash_kind} {k} {v}")
+            require(torch.equal(got[1], again[1]), f"K8 {name}: d_x differs between launches")
+            if gather is None:
+                worst_abs_fp32 = max(worst_abs_fp32, abs_err)
+            del got, again, ref
+        del table, x, g
+    torch.cuda.empty_cache()
+    return worst_abs_fp32
+
+
+def plain_hash_encoding():
+    """A context in which the hash encoding runs its plain version
+    (`encode_reference` under autograd) on any device: the plain step of
+    phases 18 and 20."""
+    from unittest import mock
+
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    def plain(table, x, cfg, hash_kind, gather_dtype):
+        return hashgrid.encode_reference(table, cfg, x, hash_kind, gather_dtype)
+
+    return mock.patch.object(hashgrid.HashEncode, "apply", plain)
+
+
+def ingp_cfg(bf16: bool):
+    """run_3d_ingp's system at its defaults (and the generated 64^2 scene)."""
+    from nerf_experiments_tpu_torch.experiments import run_3d_ingp
+
+    args = run_3d_ingp.parse_args(["--image_size", str(INGP_IMAGE), "--seed", "7"]
+                                  + (["--bf16"] if bf16 else []))
+    return run_3d_ingp.build_config(args)[0]
+
+
+def ingp_batch(n: int, n_images: int, seed: int, dev) -> dict:
+    batch = train_batch(n, n_images, torch.Generator(device=dev).manual_seed(seed), dev)
+    batch["colors"] = batch["colors"][:, :1].contiguous()  # no blur pyramid
+    return batch
+
+
+def phase_ingp_train_step(dev):
+    """One INGP train step through K7 / K8 against the same step with the
+    plain encoding, from one state, batch and generator seed, on the card:
+    the loss and every gradient handed to Adam, fp32 and bf16, by relative
+    norm. The kernel step takes the plain step's fine bins: they are
+    resampled from the coarse weights, which the two encodings round
+    differently, and a sample moved by that rounding across a grid cell's
+    face changes its coordinate gradient by a step (the interpolant's
+    derivative jumps there), which is no error of either."""
+    import copy
+    from unittest import mock
+
+    from nerf_experiments_tpu_torch.ops import sampling
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    resample = sampling.sample_pdf_weighted_intervals
+    for bf16 in (False, True):
+        cfg = ingp_cfg(bf16)
+        params = barf_sys.init(torch.Generator().manual_seed(60), cfg).to(dev)
+        with torch.no_grad():  # tables away from the init's 1e-4, a camera away from zero
+            for net in (params.radiance, params.proposal):
+                net.grid.table.uniform_(-0.1, 0.1, generator=torch.Generator(dev).manual_seed(61))
+            params.camera.rotation.normal_(0.0, 0.05, generator=torch.Generator(dev).manual_seed(62))
+        batch = ingp_batch(INGP_RAYS, cfg.n_training_images, 63, dev)
+        out, grads, fine_bins = {}, {}, []
+        for kernels in (False, True):
+            state = barf_sys.init_state(cfg, copy.deepcopy(params))
+            grads[kernels] = {}
+            adam_step = state.optimizer.step
+
+            def capture_then_step():  # keep the gradients Adam is handed
+                grads[kernels].update({k: p.grad.clone()
+                                       for k, p in state.params.named_parameters()})
+                adam_step()
+
+            def pinned_fine_bins(*a, **k):
+                if kernels:
+                    return fine_bins[0]
+                fine_bins.append(resample(*a, **k))
+                return fine_bins[0]
+
+            state.optimizer.step = capture_then_step
+            step = barf_sys.make_train_step(cfg)
+            gen = torch.Generator(device=dev).manual_seed(64)
+            with mock.patch.object(sampling, "sample_pdf_weighted_intervals", pinned_fine_bins):
+                if kernels:
+                    state, metrics = step(state, batch, gen, 0.0, 0.0, 0.0)
+                else:
+                    with plain_hash_encoding():
+                        state, metrics = step(state, batch, gen, 0.0, 0.0, 0.0)
+            out[kernels] = (float(metrics["loss"]), bool(metrics["grads_finite"]))
+        torch.cuda.synchronize()
+        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]}
+        worst = max(grad_errs, key=grad_errs.get)
+        log(f"INGP train step {'bf16' if bf16 else 'fp32'} ({INGP_RAYS} rays, 64 + 128 "
+            f"samples): loss kernels {out[True][0]:.6f} plain {out[False][0]:.6f} rel err "
+            f"{loss_err:.3e} (tol {TOL_STEP_LOSS[bf16]}); gradient rel norm err worst {worst} "
+            f"{grad_errs[worst]:.3e} over {len(grad_errs)} tensors (tables "
+            f"{grad_errs['radiance.grid.table']:.3e} / {grad_errs['proposal.grid.table']:.3e}, "
+            f"camera {grad_errs['camera.rotation']:.3e} / {grad_errs['camera.translation']:.3e}"
+            f"), tol {TOL_STEP_GRAD[bf16]}")
+        require(out[True][1] and out[False][1], "INGP step: non-finite gradients")
+        require(loss_err <= TOL_STEP_LOSS[bf16], f"INGP step loss err {loss_err}")
+        for k, v in grad_errs.items():
+            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v), f"INGP gradient {k} err {v}")
+        del params, grads, fine_bins
+        torch.cuda.empty_cache()
+
+
+def phase_ingp_training(dev, workdir):
+    """The INGP entry points end to end, with K7, K8, K1 and K3 counted:
+    `run_3d_ingp.main` at full width on the 64^2 scene (300 steps fp32 with
+    checkpoints: the train PSNR must rise by > 1 dB; 20 steps --bf16),
+    `render_views --entry ingp` on the checkpoint (a crop against the plain
+    CPU path), and `run_2d_ingp.main` at its defaults (val PSNR > 12 dB)."""
+    import numpy as np
+
+    from nerf_experiments_tpu_torch.experiments import render_views, run_2d_ingp, run_3d_ingp
+    from nerf_experiments_tpu_torch.ops.hashgrid import hash_encode_bwd_cuda, hash_encode_fwd_cuda
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+
+    fns = {"hash_encode_fwd": hash_encode_fwd_cuda, "hash_encode_bwd": hash_encode_bwd_cuda,
+           "render_fwd": render_fwd_cuda, "render_bwd": render_bwd_cuda}
+    total = dict.fromkeys(fns, 0)
+
+    def counted(entry, argv):
+        for fn in fns.values():
+            fn.launches = 0
+        result = entry(argv)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items()}
+        for k, v in launches.items():
+            total[k] += v
+        return result, launches
+
+    def rows(out):
+        return [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+
+    base = ["--image_size", str(INGP_IMAGE), "--batch_size", str(INGP_RAYS), "--seed", "7",
+            "--device", str(dev)]
+    out = os.path.join(workdir, "ingp_fp32")
+    steps = 300
+    state, launches = counted(run_3d_ingp.main, base + [
+        "--max_steps", str(steps), "--checkpoint_every_n_epochs", "10", "--out_dir", out])
+    r = rows(out)
+    psnrs = [x["psnr"] for x in r if "psnr" in x and math.isfinite(x["psnr"])]
+    rates = [x["train_rays_per_sec"] for x in r if "train_rays_per_sec" in x]
+    vals = [x["val_psnr"] for x in r if "val_psnr" in x]
+    ckpts = CheckpointManager(os.path.join(out, "ckpt")).all_steps()
+    log(f"run_3d_ingp fp32 {INGP_IMAGE}^2 batch {INGP_RAYS}: {state.step} steps, psnr "
+        f"{psnrs[0]:.3f} -> {psnrs[-1]:.3f} over {len(psnrs)} log rows (validation "
+        f"{vals[0]:.3f} -> {vals[-1]:.3f}), last train_rays_per_sec {rates[-1]:.0f}, "
+        f"checkpoints {ckpts}, launches {launches}")
+    require(state.step == steps and ckpts[-1] == steps, "run_3d_ingp fp32 run")
+    require(psnrs[-1] > psnrs[0] + 1.0, f"run_3d_ingp PSNR did not rise by 1 dB: {psnrs}")
+    require(launches["hash_encode_bwd"] == 2 * steps, "K8 not twice on every step")
+    require(launches["hash_encode_fwd"] >= 2 * steps, "K7 not twice on every step")
+    require(launches["render_fwd"] >= 2 * steps and launches["render_bwd"] == 2 * steps,
+            "K1 / K3 not on every step")
+
+    out_bf16 = os.path.join(workdir, "ingp_bf16")
+    state, launches = counted(run_3d_ingp.main, base + [
+        "--max_steps", "20", "--bf16", "--out_dir", out_bf16])
+    losses = [x["loss"] for x in rows(out_bf16) if "loss" in x]
+    log(f"run_3d_ingp bf16: {state.step} steps, loss {losses[-1]:.5f}, launches {launches}")
+    require(state.step == 20 and all(math.isfinite(v) for v in losses), "run_3d_ingp bf16")
+    require(launches["hash_encode_bwd"] == 40, "bf16: K8 not twice on every step")
+
+    ckpt = os.path.join(out, "ckpt")
+    serve = ["--entry", "ingp", "--samples_per_ray", "128", "--samples_per_ray_proposal", "64",
+             "--hidden_dim", "64", "--n_hidden", "2", "--image_size", str(INGP_IMAGE),
+             "--seed", "7"]
+    summary, launches = counted(render_views.main, [
+        "--ckpt_dir", ckpt, "--split", "test", "--n_images", "2", "--chunk", str(INGP_RAYS),
+        "--device", str(dev), "--out_dir", os.path.join(out, "render")] + serve)
+    log(f"render_views --entry ingp on the trained checkpoint (step {summary['ckpt_step']}): "
+        f"mean_psnr {summary['mean_psnr']:.3f}, launches {launches}")
+    require(summary["ckpt_step"] == steps and math.isfinite(summary["mean_psnr"]),
+            "render_views --entry ingp")
+    require(launches["hash_encode_fwd"] > 0 and launches["render_fwd"] > 0,
+            "render_views --entry ingp: K7 / K1 never launched")
+
+    # a crop of test view 0 through the kernels vs the plain path on the CPU
+    cfg, dm = render_views._build_ingp(render_views.parse_args(["--ckpt_dir", ckpt] + serve))
+    params = CheckpointManager(ckpt).restore(barf_sys.init(torch.Generator().manual_seed(7), cfg))
+    dm.setup("test")
+    ds = dm.dataset_test
+    raw = torch.as_tensor(dm.dataset_train.camera_origins)
+    noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy)
+    lo, hi = INGP_IMAGE * INGP_IMAGE // 2, INGP_IMAGE * INGP_IMAGE // 2 + 512
+    rays = (ds.ray_origins[0][lo:hi], ds.ray_directions[0][lo:hi])
+    with torch.no_grad():
+        plain = render_views.render_image(params, cfg, *rays, barf_sys.val_gauge(params, raw, noisy),
+                                          float(ds.pixel_width), 512, "cpu", 0.0, 0.0)
+        params.to(dev)
+        kern = render_views.render_image(
+            params, cfg, *rays, barf_sys.val_gauge(params, raw.to(dev), noisy.to(dev)),
+            float(ds.pixel_width), 512, dev, 0.0, 0.0)
+    err = float(np.abs(kern - plain).max())
+    log(f"render_views --entry ingp: 512-ray crop, kernel path vs plain CPU path max abs err "
+        f"{err:.3e}, tol {TOL_FP32}")
+    require(err <= TOL_FP32, f"ingp crop err {err}")
+
+    out_2d = os.path.join(workdir, "ingp_2d")
+    (_, _, result), launches = counted(run_2d_ingp.main, ["--device", str(dev),
+                                                          "--out_dir", out_2d])
+    log(f"run_2d_ingp at its defaults (256^2, batch 8192, 2000 steps): val_psnr "
+        f"{result['val_psnr']:.3f} (JAX test gate 12 dB), launches {launches}")
+    require(result["val_psnr"] > 12.0, f"run_2d_ingp val_psnr {result['val_psnr']}")
+    require(launches["hash_encode_bwd"] == 2000, "run_2d_ingp: K8 not on every step")
+    return total
+
+
+def phase_ingp_timing(dev):
+    """K7 / K8 by device time per call at run_3d_ingp's defaults and 524,288
+    points (4096 rays x 128 fine samples), against their plain versions and
+    the library calls that do their table access alone (`index_select` of
+    the precomputed global rows, `index_add_` of the contributions); the
+    INGP train step with the kernels against the plain encoding at 4096
+    rays, in turns; a profile of one step."""
+    import copy
+
+    from nerf_experiments_tpu_torch.ops import hashgrid
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    times = {}
+    cfg, table, x = hash_inputs(dict(dim=3), INGP_POINTS, 70, dev)
+    g = torch.randn((INGP_POINTS, cfg.output_dim), generator=torch.Generator(dev).manual_seed(71),
+                    device=dev)
+    T, F = cfg.table_size, cfg.n_features
+    rows = torch.cat([hashgrid._level_rows_and_offsets(cfg, res, x, "xor")[0].reshape(-1) + l * T
+                      for l, res in enumerate(cfg.level_resolutions)])
+    flat = table.reshape(-1, F)
+    contrib = torch.randn((rows.shape[0], F), generator=torch.Generator(dev).manual_seed(72),
+                          device=dev)
+    calls = 50
+    # the 8 MiB table stays in L2 from call to call, as it does through a
+    # step, and the bound counts it once; the 67 MB output (K7) and
+    # cotangent (K8) exceed the L2
+    times["K7"] = (device_ms(lambda: hashgrid.hash_encode_fwd_cuda(table, x, cfg), calls),
+                   device_ms(lambda: hashgrid.encode_reference(table, cfg, x), calls),
+                   device_ms(lambda: torch.index_select(flat, 0, rows), calls))
+    times["K8"] = (
+        device_ms(lambda: hashgrid.hash_encode_bwd_cuda(table, x, g, cfg), calls),
+        device_ms(lambda: plain_hash_grads(table, cfg, x, g), calls),
+        device_ms(lambda: torch.zeros_like(flat).index_add_(0, rows, contrib), calls))
+    for k, name in (("K7", "hash_encode_fwd"), ("K8", "hash_encode_bwd")):
+        log(f"time {k} {name} {INGP_POINTS} points 3-D L16 F2 T 2^16 fp32, device time per "
+            f"call over {calls} calls: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
+            f"library ({'index_select' if k == 'K7' else 'index_add_'} of "
+            f"{rows.shape[0]} rows) {times[k][2]:.4f} ms")
+    del table, x, g, rows, flat, contrib
+    torch.cuda.empty_cache()
+
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        cfg = ingp_cfg(bf16)
+        params = barf_sys.init(torch.Generator().manual_seed(73), cfg).to(dev)
+        batch = ingp_batch(INGP_RAYS, cfg.n_training_images, 74, dev)
+        res = {}
+        for kernels in (False, True, True, False):
+            state = barf_sys.init_state(cfg, copy.deepcopy(params))
+            step = barf_sys.make_train_step(cfg)
+            run = lambda: step(state, batch, torch.Generator(device=dev).manual_seed(75),
+                               0.0, 0.0, 0.0)
+            if kernels:
+                ms = cuda_time_ms(run, iters=5, warmup=2)
+            else:
+                with plain_hash_encoding():
+                    ms = cuda_time_ms(run, iters=5, warmup=2)
+            res.setdefault(kernels, []).append(ms)
+            del state
+            torch.cuda.empty_cache()
+        k, p = min(res[True]), min(res[False])
+        times[f"step_{tag}"] = (k, p)
+        log(f"INGP train step {tag} ({INGP_RAYS} rays, 64 + 128 samples): kernels {res[True]} "
+            f"ms -> {INGP_RAYS / k * 1e3:.0f} rays/s; plain encoding {res[False]} ms -> "
+            f"{INGP_RAYS / p * 1e3:.0f} rays/s")
+        state = barf_sys.init_state(cfg, copy.deepcopy(params))
+        step = barf_sys.make_train_step(cfg)
+        profile_step(lambda: step(state, batch, torch.Generator(device=dev).manual_seed(75),
+                                  0.0, 0.0, 0.0), f"INGP train step {tag}")
+        del state, params
+        torch.cuda.empty_cache()
+    return times
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(n_bytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations"): the inputs
+    read once and the outputs written once at the memory rate, against the
+    operations at the fp32 rate (every timed kernel below runs fp32)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def weight_count(module) -> int:
+    """The multiply-adds of one sample through the linear layers: the number
+    of weights of its Dense layers."""
+    return sum(p.numel() for n, p in module.named_parameters() if n.endswith(".w"))
+
+
+def kernel_bounds():
+    """The bound of every kernel at the shape its time was taken at (K1 / K3
+    8192 x 64, K2 / K4 8192 x 128 and K6 8192 x 192 fp32, K5 4096 x 192
+    fp32, K7 / K8 524,288 3-D points at L16 F2 T 2^16). The operation counts
+    are those of the layers' multiply-adds (2 per weight a sample: forward;
+    6: forward and both backward products) or, for the memory-bound
+    kernels, a count per element from the source (K1 ~16 a sample, K3 ~30,
+    K7 6 d per level and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d +
+    2)))."""
+    from nerf_experiments_tpu_torch.models import garf, nerf_mlp
+
+    f32 = 4
+    n, s = N_RAYS, 64
+    out = {"render_fwd": bound(f32 * (8 * n * s + 5 * n), 16 * n * s),
+           "render_bwd": bound(f32 * (13 * n * s + 5 * n), 30 * n * s)}
+    flag = nerf_mlp.init(torch.Generator().manual_seed(0), flagship_cfg(False))
+    macs = weight_count(flag)
+    rays_io = f32 * N_RAYS * (6 + 2 * 128 + 5)
+    out["flagship_render"] = bound(rays_io, 2 * macs * N_RAYS * 128)
+    out["flagship_train"] = bound(rays_io, 6 * macs * N_RAYS * 128)
+    rad = garf.radiance_init(torch.Generator().manual_seed(0), garf_cfg("gauss", False))
+    gmacs = weight_count(rad)
+    out["garf_train"] = bound(f32 * GARF_RAYS * (9 + 2 * 192), 6 * gmacs * GARF_RAYS * 192)
+    out["garf_render"] = bound(f32 * 2 * GARF_RAYS * (6 + 2 * 192 + 5),
+                               2 * gmacs * 2 * GARF_RAYS * 192)
+    B, L, T, F, D = INGP_POINTS, 16, 2**16, 2, 3
+    out["hash_encode_fwd"] = bound(f32 * (B * D + L * T * F + B * L * F),
+                                   B * L * (6 * D + 2**D * (D - 1 + 2 * F)))
+    out["hash_encode_bwd"] = bound(f32 * (B * D + B * L * F + 2 * L * T * F + B * D),
+                                   B * L * 2**D * (4 * F + D * (D + 2)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1096,15 +1578,22 @@ def main() -> int:
         run(13, phase_garf_train_step, dev)
         garf_launches = run(14, phase_garf_training, dev, workdir)
         garf_times = run(15, phase_garf_timing, dev)
+        k7_err = run(16, phase_hash_forward, dev)
+        k8_err = run(17, phase_hash_backward, dev)
+        run(18, phase_ingp_train_step, dev)
+        ingp_launches = run(19, phase_ingp_training, dev, workdir)
+        ingp_times = run(20, phase_ingp_timing, dev)
 
-    # ms / plain_ms: device time per call (torch.profiler) for K1 and K3,
-    # CUDA events per call for K2, K4, K5 (4096 x 192) and K6 (8192 x 192)
+    # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
+    # (inputs rotated past the L2), K7 and K8 (table in L2), CUDA events per
+    # call for K2, K4, K5 (4096 x 192) and K6 (8192 x 192);
+    # library_ms: the PyTorch call that does K7's / K8's table access alone
     kernels = {"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
          "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
-         + garf_launches["render_fwd"],
+         + garf_launches["render_fwd"] + ingp_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
@@ -1117,7 +1606,8 @@ def main() -> int:
         {"name": "render_bwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
-         "launches": train_launches["render_bwd"], "max_abs_err": k3_err,
+         "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"],
+         "max_abs_err": k3_err,
          "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
         {"name": "flagship_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/flagship_train.cu",
@@ -1134,7 +1624,25 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:376",
          "launches": garf_launches["garf_render"], "max_abs_err": k6_err,
          "ms": garf_times["K6_gauss_fp32"][0], "plain_ms": garf_times["K6_gauss_fp32"][1]},
+        {"name": "hash_encode_fwd", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/hashgrid.cu",
+         "replaces": "nerf_experiments_tpu/ops/hashgrid_pallas.py:61",
+         "launches": ingp_launches["hash_encode_fwd"], "max_abs_err": k7_err,
+         "ms": ingp_times["K7"][0], "plain_ms": ingp_times["K7"][1]},
+        {"name": "hash_encode_bwd", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/hashgrid.cu",
+         "replaces": "nerf_experiments_tpu/ops/hashgrid_pallas.py:87",
+         "launches": ingp_launches["hash_encode_bwd"], "max_abs_err": k8_err,
+         "ms": ingp_times["K8"][0], "plain_ms": ingp_times["K8"][1]},
     ]}
+    bounds = kernel_bounds()
+    library = {"hash_encode_fwd": ingp_times["K7"][2], "hash_encode_bwd": ingp_times["K8"][2]}
+    for k in kernels["kernels"]:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = library.get(k["name"])
+    for k in kernels["kernels"]:
+        log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}): {k['bound_ms'] / k['ms']:.3f} of the roofline")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

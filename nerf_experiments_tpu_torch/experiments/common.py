@@ -57,8 +57,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=134534)
     p.add_argument("--wandb", action="store_true", default=False)
     p.add_argument("--bf16", action="store_true", default=False)
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; a run without a card needs --device cpu")
 
 
 @dataclasses.dataclass
@@ -90,7 +90,7 @@ def build_barf_experiment(
     """Ray stores on `device`, initial parameters drawn from a generator
     seeded with `trainer_cfg.seed`, the train step, validation, pose error,
     image/point loggers, checkpoints and the trainer."""
-    device = torch.device(device or "cpu")
+    device = torch.device(device or "cuda")
     dm.setup("fit")
     train_store = sampler.make_ray_store(dm.dataset_train, device)
     val_store = sampler.make_ray_store(dm.dataset_val, device) if dm.dataset_val else None
@@ -98,14 +98,14 @@ def build_barf_experiment(
     params = barf_sys.init(torch.Generator().manual_seed(trainer_cfg.seed), cfg).to(device)
     state = barf_sys.init_state(cfg, params)
     step_fn = barf_sys.make_train_step(cfg, fused=fused)
-    pos_enc, dir_enc = cfg.radiance.position_encoder, cfg.radiance.direction_encoder
-    levels = (float(pos_enc.levels), float(dir_enc.levels))  # validation: all unlocked
+    model = barf_sys.model_def(cfg.radiance)
+    levels = model.full_alphas()  # validation: every level unlocked
 
     def scalar_fn(step: int, epoch_frac: float):
         if alpha_schedules is not None:
             a_pos, a_dir = alpha_schedules[0](epoch_frac), alpha_schedules[1](epoch_frac)
         else:
-            a_pos, a_dir = pos_enc.alpha_at(epoch_frac), dir_enc.alpha_at(epoch_frac)
+            a_pos, a_dir = model.alphas_at(epoch_frac)
         return a_pos, a_dir, schedules.barf_sigma_alpha(a_pos, cfg.max_gaussian_sigma)
 
     raw = train_store.camera_origins_raw

@@ -5,7 +5,8 @@ whole images (val/test through the Kabsch gauge, train through the learned
 extrinsics), writes PNGs, and prints per-image + mean PSNR as one JSON line.
 On a CUDA device the flagship configs render through the hand-written
 kernels (`ops/train_megakernel.py:flagship_render`, and the compositing
-kernel for a proposal stage).
+kernel for a proposal stage); a run_3d_ingp checkpoint (`--entry ingp`)
+through the hash-grid kernel and the compositing kernel.
 
     python -m nerf_experiments_tpu_torch.experiments.render_views \\
         --ckpt_dir runs/latest/ckpt --scene_path synthetic --split test
@@ -42,15 +43,21 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_dir", type=str, required=True)
     p.add_argument("--ckpt_step", type=int, default=None)
     p.add_argument("--entry", choices=["barf", "mip", "bip", "ingp"], default="barf",
-                   help="which experiment entry built the checkpoint; only "
-                        "'barf' is ported so far")
+                   help="which experiment entry built the checkpoint: run_barf "
+                        "or run_3d_ingp (hash-grid NeRF; fine / coarse samples "
+                        "from --samples_per_ray / --samples_per_ray_proposal, "
+                        "MLP from --hidden_dim / --n_hidden); 'mip' and 'bip' "
+                        "are not ported yet")
+    # run_3d_ingp grid flags (used when --entry ingp rebuilds the model)
     p.add_argument("--ingp_n_levels", type=int, default=16)
     p.add_argument("--ingp_n_features", type=int, default=2)
     p.add_argument("--ingp_table_size", type=int, default=2**16)
     p.add_argument("--ingp_resolution_max", type=int, default=512)
     p.add_argument("--ingp_encoder", choices=("fused", "matmul", "rolled"),
                    default="fused")
-    p.add_argument("--ingp_weight_decay", type=float, default=0.0)
+    p.add_argument("--ingp_weight_decay", type=float, default=0.0,
+                   help="the training run's; kept for the JAX package's CLI "
+                        "(a params-only restore does not need it)")
     p.add_argument("--split", choices=["train", "val", "test"], default="test")
     p.add_argument("--serve_block", type=int, default=1,
                    help="block-coarse serving; only 1 (the standard path) is "
@@ -66,16 +73,42 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _build_ingp(args):
+    """(BarfConfig, data module) of the run_3d_ingp experiment these flags name."""
+    from nerf_experiments_tpu_torch.experiments import run_3d_ingp
+
+    ingp_args = run_3d_ingp.parse_args([
+        "--scene_path", args.scene_path, "--image_size", str(args.image_size),
+        "--batch_size", str(args.batch_size),
+        "--samples_per_ray_fine", str(args.samples_per_ray),
+        "--samples_per_ray_coarse", str(args.samples_per_ray_proposal),
+        "--n_levels", str(args.ingp_n_levels),
+        "--n_features", str(args.ingp_n_features),
+        "--table_size", str(args.ingp_table_size),
+        "--resolution_max", str(args.ingp_resolution_max),
+        "--weight_decay", str(args.ingp_weight_decay),
+        "--encoder", args.ingp_encoder,
+        "--hidden_dim", str(args.hidden_dim), "--n_hidden", str(args.n_hidden),
+        "--checkpoint_every_n_epochs", "0",
+        "--seed", str(args.seed), "--out_dir", args.out_dir,
+    ] + (["--bf16"] if args.bf16 else []))
+    return run_3d_ingp.build_config(ingp_args)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.entry != "barf":
+    if args.entry in ("mip", "bip"):
         raise NotImplementedError(
-            f"--entry {args.entry} is not ported yet: the Mip/BIP encodings and "
-            "the hash grid come with later PRs of the port (ROADMAP A10, A12)")
+            f"--entry {args.entry} is not ported yet: the Mip/BIP encodings come "
+            "with a later PR of the port (ROADMAP A10)")
     if args.serve_block > 1:
         raise NotImplementedError(
             "--serve_block > 1 (render_block_coarse) is not ported yet: it comes "
             "with the block-coarse PR of the port (ROADMAP A9)")
+    if args.entry == "ingp":
+        cfg, dm = _build_ingp(args)
+        params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(args.device)
+        return _render(args, cfg, dm, params)
     barf_args = run_barf.parse_args([
         "--scene_path", args.scene_path, "--image_size", str(args.image_size),
         "--batch_size", str(args.batch_size),
@@ -135,9 +168,7 @@ def _render(args, cfg, dm, params):
     with torch.no_grad():
         gauge = barf_sys.val_gauge(params, raw, noisy)
 
-    # validation uses fully unlocked encodings
-    a_pos = float(cfg.radiance.position_encoder.levels)
-    a_dir = float(cfg.radiance.direction_encoder.levels)
+    a_pos, a_dir = barf_sys.model_def(cfg.radiance).full_alphas()  # every level on
 
     h, w = dataset.image_height, dataset.image_width
     hw = h * w

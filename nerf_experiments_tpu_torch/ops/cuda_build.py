@@ -9,8 +9,8 @@ rebuilds and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()`; `check` raises on a non-zero code. The
-helpers at the end (`check_rays`, `is_bf16`, `device_weights`, `pointers`)
-prepare the arguments the radiance-field wrappers pass.
+helpers at the end (`check_tensor`, `check_rays`, `is_bf16`, `device_weights`,
+`pointers`) prepare the arguments the wrappers pass.
 """
 from __future__ import annotations
 
@@ -66,6 +66,12 @@ SIGNATURES = {
     # grads, rgb_out, weights_out, d_origs, d_dirs, stream
     "netpu_garf_train": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P] * 4 + [_I] * 3
                         + [_P, _I] + [_P] * 6,
+    # table, x, out, level_info (host), n_levels, table_size, n_features, dim,
+    # n, additive, bf16, stream
+    "netpu_hash_encode_fwd": [_P] * 4 + [_I] * 7 + [_P],
+    # table, x, g, d_table, d_x (nullable), level_info (host), n_levels,
+    # table_size, n_features, dim, n, additive, bf16, stream
+    "netpu_hash_encode_bwd": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -151,17 +157,23 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
 
 
+def check_tensor(name: str, t: torch.Tensor, shape, dev) -> None:
+    """Refuse a tensor that is not a contiguous fp32 one of `shape` on `dev`."""
+    if t.dtype != torch.float32 or t.device != dev:
+        raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
 def check_rays(n: int, s: int, dev, **tensors) -> None:
     """Refuse a ray tensor that is not a contiguous fp32 one of its shape on
     `dev`: origs, dirs, targets (n, 3); t_start, t_end (n, s)."""
     shapes = {"origs": (n, 3), "dirs": (n, 3), "targets": (n, 3),
               "t_start": (n, s), "t_end": (n, s)}
     for name, t in tensors.items():
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shapes[name] or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {shapes[name]}, got "
-                             f"{tuple(t.shape)}")
+        check_tensor(name, t, shapes[name], dev)
 
 
 def is_bf16(cfg) -> bool:

@@ -16,23 +16,14 @@ from nerf_experiments_tpu_torch.ops import cuda_build, render
 from nerf_experiments_tpu_torch.ops.render import DENSITY_SCALE
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"{name}: need float32 on {device}, got {t.dtype} on {t.device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_inputs(densities, dists, t_mid, colors):
     n, s = densities.shape
     dev = densities.device
-    _check("densities", densities, (n, s), dev)
-    _check("dists", dists, (n, s), dev)
-    _check("colors", colors, (n, s, 3), dev)
+    cuda_build.check_tensor("densities", densities, (n, s), dev)
+    cuda_build.check_tensor("dists", dists, (n, s), dev)
+    cuda_build.check_tensor("colors", colors, (n, s, 3), dev)
     if t_mid is not None:
-        _check("t_mid", t_mid, (n, s), dev)
+        cuda_build.check_tensor("t_mid", t_mid, (n, s), dev)
     return n, s, dev
 
 
@@ -64,9 +55,9 @@ def render_bwd_cuda(densities, dists, t_mid, colors, g_weights, g_trans, g_stats
     """One launch of the backward kernel: (d_densities, d_dists (N,S),
     d_colors (N,S,3)); the plain version is `render.render_bwd_reference`."""
     n, s, dev = _check_inputs(densities, dists, t_mid, colors)
-    _check("g_weights", g_weights, (n, s), dev)
-    _check("g_trans", g_trans, (n, s), dev)
-    _check("g_stats", g_stats, (n, 5), dev)
+    cuda_build.check_tensor("g_weights", g_weights, (n, s), dev)
+    cuda_build.check_tensor("g_trans", g_trans, (n, s), dev)
+    cuda_build.check_tensor("g_stats", g_stats, (n, 5), dev)
     lib = cuda_build.library()
     ddens = torch.empty((n, s), dtype=torch.float32, device=dev)
     ddists = torch.empty((n, s), dtype=torch.float32, device=dev)

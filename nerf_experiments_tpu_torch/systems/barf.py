@@ -3,7 +3,9 @@ the objective, the train steps (plain autograd and fused), the optimizer,
 the validation gauge and the pose-error metric.
 
 Port of `nerf_experiments_tpu/systems/barf.py` for the flagship BARF
-configs (dense and proposal-hierarchical); the occupancy grid and
+configs (dense and proposal-hierarchical) and for any other radiance field
+behind the model-definition interface (`model_def`; the hash-grid NeRF of
+`run_3d_ingp`), which trains through the plain step; the occupancy grid and
 block-coarse training and serving come later (ROADMAP A9).
 
 `forward(..., fused=True)` runs the radiance pass through the flagship render
@@ -21,7 +23,7 @@ return it, with metrics as device scalars.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,14 +44,59 @@ from nerf_experiments_tpu_torch.training import optim
 
 
 @dataclasses.dataclass(frozen=True)
+class NerfMLPDef:
+    """The NerfMLP behind the model-definition interface every radiance field
+    of the system exposes: `init(generator, device)`, `apply(params, pos, dir,
+    pixel_width, t_start, t_end, alpha_pos, alpha_dir, pixel_width_sigma)`,
+    `param_group`, `from_numpy(tree, device)`, and the encoders' alphas
+    `alphas_at(epoch_frac)` (training) and `full_alphas()` (every level on:
+    validation and rendering)."""
+
+    cfg: nerf_mlp.NerfMLPConfig
+
+    def init(self, generator: torch.Generator, device=None) -> nerf_mlp.NerfMLP:
+        return nerf_mlp.init(generator, self.cfg, device=device)
+
+    def apply(self, params, pos, dir, pixel_width, t_start, t_end, alpha_pos, alpha_dir,
+              pixel_width_sigma=0.0):
+        return nerf_mlp.apply(params, self.cfg, pos, dir, pixel_width=pixel_width,
+                              t_start=t_start, t_end=t_end, alpha_pos=alpha_pos,
+                              alpha_dir=alpha_dir, pixel_width_sigma=pixel_width_sigma)
+
+    @property
+    def param_group(self) -> ParamGroup:
+        return self.cfg.param_group
+
+    def from_numpy(self, tree: Dict, device=None) -> nerf_mlp.NerfMLP:
+        return nerf_mlp.from_numpy(tree, self.cfg, device=device)
+
+    def alphas_at(self, epoch_frac: float) -> Tuple[float, float]:
+        return (self.cfg.position_encoder.alpha_at(epoch_frac),
+                self.cfg.direction_encoder.alpha_at(epoch_frac))
+
+    def full_alphas(self) -> Tuple[float, float]:
+        return (float(self.cfg.position_encoder.levels),
+                float(self.cfg.direction_encoder.levels))
+
+
+def model_def(model):
+    """A NerfMLPConfig wrapped as a NerfMLPDef; any other model definition
+    (the hash-grid NeRF of `run_3d_ingp`) as it is (the JAX package's
+    `_model_def`)."""
+    if isinstance(model, nerf_mlp.NerfMLPConfig):
+        return NerfMLPDef(model)
+    return model
+
+
+@dataclasses.dataclass(frozen=True)
 class BarfConfig:
-    radiance: nerf_mlp.NerfMLPConfig
+    radiance: Any  # a NerfMLPConfig or a model definition (see `model_def`)
     n_training_images: int
     near: float = 2.0
     far: float = 8.0
     samples_per_ray_radiance: int = 128
     samples_per_ray_proposal: int = 0  # 0 => no hierarchical sampling
-    proposal: Optional[nerf_mlp.NerfMLPConfig] = None  # None => radiance's architecture
+    proposal: Optional[Any] = None  # None => radiance's architecture
     share_proposal_net: bool = False  # MipNeRF style (model_mip.py:36)
     uniform_sampling_strategy: str = "stratified_uniform"
     uniform_sampling_offset_size: float = 0.0
@@ -87,24 +134,24 @@ class BarfParams(nn.Module):
     """The system's parameters under the JAX package's names: `radiance`,
     optional `proposal`, and `camera` (rotation, translation)."""
 
-    def __init__(self, radiance: nerf_mlp.NerfMLP, camera: extrinsics.Extrinsics,
-                 proposal: Optional[nerf_mlp.NerfMLP] = None):
+    def __init__(self, radiance: nn.Module, camera: extrinsics.Extrinsics,
+                 proposal: Optional[nn.Module] = None):
         super().__init__()
         self.radiance = radiance
         self.proposal = proposal
         self.camera = camera
 
 
-def _proposal_cfg(cfg: BarfConfig) -> nerf_mlp.NerfMLPConfig:
-    return cfg.proposal if cfg.proposal is not None else cfg.radiance
+def _proposal_def(cfg: BarfConfig):
+    return model_def(cfg.proposal if cfg.proposal is not None else cfg.radiance)
 
 
 def init(generator: torch.Generator, cfg: BarfConfig, device=None) -> BarfParams:
     """Fresh parameters drawn from `generator` (radiance, then proposal)."""
-    radiance = nerf_mlp.init(generator, cfg.radiance, device=device)
+    radiance = model_def(cfg.radiance).init(generator, device=device)
     proposal = None
     if cfg.use_proposal and not cfg.share_proposal_net:
-        proposal = nerf_mlp.init(generator, _proposal_cfg(cfg), device=device)
+        proposal = _proposal_def(cfg).init(generator, device=device)
     camera = extrinsics.init(cfg.n_training_images, device=device)
     return BarfParams(radiance, camera, proposal)
 
@@ -112,20 +159,21 @@ def init(generator: torch.Generator, cfg: BarfConfig, device=None) -> BarfParams
 def params_from_numpy(tree: Dict, cfg: BarfConfig, device=None) -> BarfParams:
     """The JAX package's whole-model pytree {"radiance", ["proposal"],
     "camera": {"rotation", "translation"}} -> BarfParams."""
-    radiance = nerf_mlp.from_numpy(tree["radiance"], cfg.radiance, device=device)
+    radiance = model_def(cfg.radiance).from_numpy(tree["radiance"], device=device)
     proposal = None
     if "proposal" in tree:
-        proposal = nerf_mlp.from_numpy(tree["proposal"], _proposal_cfg(cfg), device=device)
+        proposal = _proposal_def(cfg).from_numpy(tree["proposal"], device=device)
     cam = {k: torch.tensor(np.asarray(tree["camera"][k], np.float32), device=device)
            for k in ("rotation", "translation")}
     return BarfParams(radiance, extrinsics.Extrinsics(cam["rotation"], cam["translation"]),
                       proposal)
 
 
-def _eval_model(model: nerf_mlp.NerfMLP, origs, dirs, t_start, t_end, pixel_width,
+def _eval_model(mdef, model: nn.Module, origs, dirs, t_start, t_end, pixel_width,
                 alpha_pos, alpha_dir, integration_strategy, pixel_width_sigma=0.0):
-    """Positions from t bins -> flattened MLP eval -> (density (N,S), rgb
-    (N,S,3)). Mirrors `_compute_positions:288-312` + `_compute_color:356-414`."""
+    """Positions from t bins -> flattened eval of the model definition `mdef`
+    with parameters `model` -> (density (N,S), rgb (N,S,3)). Mirrors
+    `_compute_positions:288-312` + `_compute_color:356-414`."""
     n_rays, n_samples = t_start.shape
     t_q = sampling.t_query(t_start, t_end, integration_strategy)
     pos = origs[:, None, :] + t_q[..., None] * dirs[:, None, :]
@@ -134,19 +182,20 @@ def _eval_model(model: nerf_mlp.NerfMLP, origs, dirs, t_start, t_end, pixel_widt
     def flat(x, d):
         return x.reshape(n_rays * n_samples, d)
 
-    density, rgb = nerf_mlp.apply(
-        model, model.cfg, flat(pos, 3), flat(dirs_rep, 3),
-        pixel_width=pixel_width.expand(n_rays, n_samples).reshape(-1, 1),
-        t_start=flat(t_start[..., None], 1), t_end=flat(t_end[..., None], 1),
-        alpha_pos=alpha_pos, alpha_dir=alpha_dir, pixel_width_sigma=pixel_width_sigma,
+    density, rgb = mdef.apply(
+        model, flat(pos, 3), flat(dirs_rep, 3),
+        pixel_width.expand(n_rays, n_samples).reshape(-1, 1),
+        flat(t_start[..., None], 1), flat(t_end[..., None], 1),
+        alpha_pos, alpha_dir, pixel_width_sigma,
     )
     return density.reshape(n_rays, n_samples), rgb.reshape(n_rays, n_samples, 3)
 
 
-def _proposal_model(params: BarfParams, cfg: BarfConfig) -> nerf_mlp.NerfMLP:
+def _proposal_model(params: BarfParams, cfg: BarfConfig):
+    """(model definition, parameters) of the coarse stage."""
     if cfg.share_proposal_net or params.proposal is None:
-        return params.radiance
-    return params.proposal
+        return model_def(cfg.radiance), params.radiance
+    return _proposal_def(cfg), params.proposal
 
 
 def forward(
@@ -186,7 +235,7 @@ def forward(
     if cfg.use_proposal:
         tc_start, tc_end = stratified_bins(cfg.samples_per_ray_proposal)
         dens_c, rgb_c_samples = _eval_model(
-            _proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
+            *_proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
             pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
         )
         rgb_coarse, weights = render.render_rays_auto(
@@ -203,7 +252,7 @@ def forward(
         return rgb_fine, rgb_coarse
 
     dens_f, rgb_f_samples = _eval_model(
-        params.radiance, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
+        model_def(cfg.radiance), params.radiance, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
         alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
     )
     rgb_fine, _ = render.render_rays_auto(
@@ -222,11 +271,11 @@ class TrainState:
 
 def make_groups(cfg: BarfConfig, params: BarfParams):
     """(groups, params_by_label) shared by the optimizer and the LR rows."""
-    groups = {"radiance": cfg.radiance.param_group, "camera": cfg.camera_group}
+    groups = {"radiance": model_def(cfg.radiance).param_group, "camera": cfg.camera_group}
     by_label = {"radiance": list(params.radiance.parameters()),
                 "camera": list(params.camera.parameters())}
     if params.proposal is not None:
-        groups["proposal"] = _proposal_cfg(cfg).param_group
+        groups["proposal"] = _proposal_def(cfg).param_group
         by_label["proposal"] = list(params.proposal.parameters())
     if not cfg.optimize_camera:
         groups["camera"] = ParamGroup(0.0, 0.0, 0)
@@ -349,7 +398,7 @@ def train_step_fused(
             gen, n_rays, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
             device=origs.device)
         dens_c, rgb_c_samples = _eval_model(
-            _proposal_model(params, cfg), origs, dirs, tc_start, tc_end,
+            *_proposal_model(params, cfg), origs, dirs, tc_start, tc_end,
             batch["pixel_width"], alpha_pos, alpha_dir, cfg.integration_strategy)
         rgb_coarse, weights = render.render_rays_auto(
             dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)

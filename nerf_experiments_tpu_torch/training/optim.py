@@ -24,11 +24,15 @@ What matches optax, step for step:
     `scale_by_adam`: p <- p - lr (adam_update + wd p), which is AdamW's
     decoupled decay with the group's own `weight_decay` (0 elsewhere). It
     applies on guarded steps too, and not in a freeze window (lr 0).
+
+`ReduceOnPlateau` is `optax.contrib.reduce_on_plateau`, the plateau scale
+of the 2-D hash-grid fit (`experiments/run_2d_ingp.py`).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, List
 
+import numpy as np
 import torch
 
 from nerf_experiments_tpu_torch.models.common import ParamGroup
@@ -135,3 +139,53 @@ def multi_group_adam(groups: Dict[str, ParamGroup],
     per LR update)."""
     return MultiGroupAdam(groups, params_by_label, eps, schedule_kind, adam_b1, adam_b2,
                           scheduler_steps_per_period)
+
+
+# optax.contrib.reduce_on_plateau's defaults, which the 2-D fit keeps
+# (cooldown 0 and min_scale 0 leave nothing to count or clamp)
+PLATEAU_RTOL = 1e-4
+PLATEAU_ATOL = 0.0
+
+
+class ReduceOnPlateau:
+    """`optax.contrib.reduce_on_plateau` (optax 0.2.6, rtol 1e-4, atol 0,
+    cooldown 0, min_scale 0) as a scale on the learning rate: the loss values
+    handed to `update` are averaged over `accumulation_size` calls; at the
+    end of each window the average improves on the best when it is below
+    (1 - rtol) * best - atol, and after `patience` windows without
+    improvement the scale is multiplied by `factor`. The scale `update`
+    returns applies to the update of the same step, as optax's chain scales
+    that step's Adam update. The average is kept in float32 on the loss's
+    device, read once a window (the one host sync).
+
+    Not `torch.optim.lr_scheduler.ReduceLROnPlateau`: its threshold and
+    counting differ."""
+
+    def __init__(self, factor: float = 0.5, patience: int = 5, accumulation_size: int = 100):
+        self.factor, self.patience, self.accumulation_size = factor, patience, accumulation_size
+        self.scale = np.float32(1.0)
+        self.best_value = np.float32(np.inf)
+        self.plateau_count = 0
+        self.count = 0
+        self.avg_value = None  # float32 device scalar, set by the first update
+
+    def update(self, value) -> float:
+        """Add one loss value; return the scale for this step's update."""
+        value = torch.as_tensor(value).detach().float()
+        avg = self.avg_value if self.avg_value is not None else torch.zeros_like(value)
+        self.avg_value = (self.count * avg + value) / (self.count + 1)
+        self.count += 1
+        if self.count == self.accumulation_size:
+            self._window_end(np.float32(self.avg_value.item()))
+        return float(self.scale)
+
+    def _window_end(self, avg: np.float32) -> None:
+        improved = avg < np.float32(1 - PLATEAU_RTOL) * self.best_value - np.float32(PLATEAU_ATOL)
+        if improved:
+            self.best_value = avg
+        self.plateau_count = 0 if improved else self.plateau_count + 1
+        if self.plateau_count == self.patience:
+            self.plateau_count = 0
+            self.scale = self.scale * np.float32(self.factor)
+        self.count = 0
+        self.avg_value = torch.zeros_like(self.avg_value)

@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports no JAX, its kernel build fails
 clearly without nvcc (also when a CUDA tensor reaches a kernel wrapper), its
-checkpoints round-trip, and its entry points refuse what is not ported yet."""
+checkpoints round-trip, its entry points default to the card and refuse what
+is not ported yet."""
 import dataclasses
 import os
 import pkgutil
@@ -40,7 +41,12 @@ def test_port_imports_no_jax():
             "nerf_experiments_tpu_torch.ops.garf_megakernel",
             "nerf_experiments_tpu_torch.ops.proposal",
             "nerf_experiments_tpu_torch.models.garf",
-            "nerf_experiments_tpu_torch.encodings.activations"} <= set(mods)
+            "nerf_experiments_tpu_torch.encodings.activations",
+            "nerf_experiments_tpu_torch.ops.hashgrid",
+            "nerf_experiments_tpu_torch.models.ingp",
+            "nerf_experiments_tpu_torch.data.single_image",
+            "nerf_experiments_tpu_torch.experiments.run_3d_ingp",
+            "nerf_experiments_tpu_torch.experiments.run_2d_ingp"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -67,12 +73,13 @@ def test_kernel_sources_and_entry_points():
     cu, headers = cuda_build._sources()
     assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu",
                                     "garf_render.cu", "garf_train.cu", "garf_train_gauss.cu",
-                                    "garf_train_gabor.cu", "garf_train_sarf.cu"}
+                                    "garf_train_gabor.cu", "garf_train_sarf.cu", "hashgrid.cu"}
     assert {f.name for f in headers} >= {"flagship_common.cuh", "garf_common.cuh",
                                          "train_common.cuh", "garf_train.cuh"}
     assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render",
                                           "netpu_render_bwd", "netpu_flagship_train",
-                                          "netpu_garf_render", "netpu_garf_train"}
+                                          "netpu_garf_render", "netpu_garf_train",
+                                          "netpu_hash_encode_fwd", "netpu_hash_encode_bwd"}
 
 
 class FakeCuda(torch.Tensor):
@@ -97,6 +104,7 @@ def kernel_calls():
     from nerf_experiments_tpu_torch.models import garf, nerf_mlp
     from nerf_experiments_tpu_torch.ops.garf_megakernel import (
         garf_radiance_render, garf_radiance_train_grads)
+    from nerf_experiments_tpu_torch.ops import hashgrid
 
     n, s = 4, 8
     cfg = dataclasses.replace(mlp_cfg(8, 2), n_hidden=1)
@@ -104,6 +112,8 @@ def kernel_calls():
     gcfg = garf.GarfConfig(activation="gabor")
     gparams = garf.radiance_init(torch.Generator().manual_seed(0), gcfg)
     rays = lambda: (fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, s), fake_cuda(n, s))
+    hcfg = hashgrid.HashGridConfig(dim=3, n_levels=2, table_size=64, resolution_max=32)
+    table = lambda: fake_cuda(2, 64, 2)
     return {
         "render_rays": lambda: render.render_rays_auto(fake_cuda(n, s), fake_cuda(n, s, 3),
                                                        fake_cuda(n, s)),
@@ -118,12 +128,16 @@ def kernel_calls():
         "garf_render": lambda: garf_radiance_render(gparams, gcfg, *rays(), 0.5),
         "garf_train": lambda: garf_radiance_train_grads(gparams, gcfg, *rays(),
                                                         fake_cuda(n, 3), 0.5),
+        "hash_encode": lambda: hashgrid.encode(hashgrid.HashGrid(table()), hcfg,
+                                               fake_cuda(n, 3)),
+        "hash_encode_bwd": lambda: hashgrid.hash_encode_bwd_cuda(
+            table(), fake_cuda(n, 3), fake_cuda(n, 4), hcfg),
     }
 
 
 @pytest.mark.parametrize("entry", ["flagship_render", "flagship_train", "render_bwd",
                                    "render_full", "render_rays", "garf_render",
-                                   "garf_train"])
+                                   "garf_train", "hash_encode", "hash_encode_bwd"])
 def test_cuda_tensor_without_nvcc_raises_the_nvcc_error(entry, tmp_path, monkeypatch):
     """A CUDA tensor goes to the kernel or the call raises: never a silent
     fall back to the plain version."""
@@ -164,8 +178,7 @@ def test_checkpoint_round_trip(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore(b)
 
 
-@pytest.mark.parametrize("argv", [["--entry", "mip"], ["--entry", "ingp"],
-                                  ["--serve_block", "4"]])
+@pytest.mark.parametrize("argv", [["--entry", "mip"], ["--serve_block", "4"]])
 def test_render_views_refuses_what_is_not_ported(argv):
     from nerf_experiments_tpu_torch.experiments import render_views
 
@@ -192,6 +205,19 @@ def test_garf_entry_refuses_what_is_not_ported(argv):
 
     with pytest.raises(NotImplementedError, match="not ported"):
         garf_main.main(argv)
+
+
+@pytest.mark.parametrize("entry", ["run_barf", "garf_main", "render_views", "run_3d_ingp",
+                                   "run_2d_ingp"])
+def test_device_defaults_to_cuda(entry):
+    """Every entry point runs on the card unless --device says otherwise,
+    with no fallback to the CPU when CUDA is missing."""
+    import importlib
+
+    module = importlib.import_module(f"nerf_experiments_tpu_torch.experiments.{entry}")
+    argv = ["--ckpt_dir", "unused"] if entry == "render_views" else []
+    assert module.parse_args(argv).device == "cuda"
+    assert module.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
 def test_fused_forward_needs_a_flagship_config():
