@@ -69,7 +69,27 @@ Phases, each raising on failure:
  20. time K7 / K8 at 524,288 points against their plain versions and the
      library calls of their table access (`index_select`, `index_add_`),
      the INGP train step with kernels against the plain encoding at 4096
-     rays, and profile one step.
+     rays, and profile one step;
+ 21. hold the fused MLP chain's forward (K9) and backward (K10) against
+     `fused_chain_reference` and autograd through it: run_mip_nerf's three
+     chains at one step's 262,144 rows and a ragged 1,000, fp32 and bf16,
+     y, dx and every dW / db by relative norm, two K10 launches bitwise equal;
+ 22. hold K11 (`render_megakernel.flagship_render`: equidistant bins with
+     per-ray offsets through K2's kernel) against its plain version at 8192
+     x 128 fp32 and bf16 and a ragged 37 rays, and its config refusal;
+ 23. one Mip-NeRF train step with `FusedNerfMLPDef` (K9 / K10) against the
+     same step with `NerfMLPDef` (fp32, bf16): the loss and every gradient;
+ 24. the Mip / BIP entry points end to end on a generated 32^2 scene with
+     K9, K10, K11, K1 and K3 counted: `run_mip_nerf.main` at full width (the
+     train PSNR must rise by > 1 dB; `--resume`), `run_bip_barf.main`,
+     `render_views --entry mip|bip` (crops against the plain CPU path), the
+     `FusedNerfMLPDef` config through `build_barf_experiment` and the
+     trainer, a few steps of each thin entry point, and phase 9's BARF
+     checkpoint served through K11;
+ 25. time K9 / K10 at 262,144 rows against their plain versions and the
+     cuBLAS `addmm` chain, K11 against its plain version and K2 at 8192 x
+     128, the Mip-NeRF step with `FusedNerfMLPDef` against `NerfMLPDef`, and
+     profile one step of each.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -1476,6 +1496,522 @@ def phase_ingp_timing(dev):
     return times
 
 
+# ---- the Mip / BIP slice: K9 / K10 (the fused MLP chain) and K11
+
+
+MIP_RAYS = 1024  # the train batch of phases 23-25
+MIP_ROWS = MIP_RAYS * (192 + 64)  # the rows one step's chains take: fine + proposal samples
+MIP_IMAGE = 32
+# K9 / K10: relative norm of y, dx and every dW / db against the plain
+# version, as K4's: fp32 summation order only; bf16 both round the same
+# operands, and the summation order can move an activation by a bf16 step.
+TOL_CHAIN = {False: TOL_K4_FP32, True: TOL_K4_BF16}
+
+
+def mip_config(bf16: bool = False, fused: bool = False):
+    """(BarfConfig, data module) of run_mip_nerf at its full width (IPE 10 /
+    Fourier 4, 4x256 x 2 segments, 192 + 64 samples with a shared net,
+    density scale 21) on the 32^2 scene, batch 1024; with `fused` the
+    radiance field is the fused-chain plug `FusedNerfMLPDef` of the same
+    config, as `BarfConfig(radiance=FusedNerfMLPDef(cfg))` builds it."""
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.experiments import run_mip_nerf
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    args = run_mip_nerf.parse_args(["--image_size", str(MIP_IMAGE), "--batch_size",
+                                    str(MIP_RAYS), "--seed", "7"] + (["--bf16"] if bf16 else []))
+    cfg, dm = run_mip_nerf.build_config(args)
+    if fused:
+        cfg = dataclasses.replace(cfg, radiance=barf_sys.FusedNerfMLPDef(cfg.radiance))
+    return cfg, dm
+
+
+def chain_layers(params):
+    """The three chains of a NerfMLP: (name, layers) of segment 1, segment 2
+    and the colour head."""
+    return [("segment 1", list(params.segments[0].layers)),
+            ("segment 2", list(params.segments[1].layers)),
+            ("colour head", list(params.color))]
+
+
+def chain_dims(layers) -> list:
+    return [layers[0].w.shape[0]] + [l.w.shape[1] for l in layers]
+
+
+def chain_name(layers) -> str:
+    return "->".join(map(str, chain_dims(layers)))
+
+
+def chain_inputs(layers, rows: int, seed: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((rows, layers[0].w.shape[0]), generator=gen, device=dev) * 2.0 - 1.0
+    g = torch.randn((rows, layers[-1].w.shape[1]), generator=gen, device=dev)
+    return x, g
+
+
+def phase_fused_mlp(dev):
+    """K9 / K10 against the plain chain (`fused_chain_reference`, and
+    autograd through it) on the card: run_mip_nerf's three chains (63 ->
+    4x256 -> 256, 319 -> 4x256 -> 257, 280 -> 128 -> 3) at one step's
+    262,144 rows and a ragged 1,000, fp32 and bf16; y, dx and every dW / db
+    by relative norm, and two K10 launches bitwise equal."""
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import fused_mlp as fm
+
+    worst = {"fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
+    for bf16 in (False, True):
+        dtype = torch.bfloat16 if bf16 else None
+        cfg, _ = mip_config(bf16)
+        params = nerf_mlp.init(torch.Generator().manual_seed(20), cfg.radiance).to(dev)
+        for name, layers in chain_layers(params):
+            for rows in (MIP_ROWS, 1000):
+                x, g = chain_inputs(layers, rows, 21, dev)
+                with torch.no_grad():
+                    y = fm.fused_mlp_fwd_cuda(x, layers, bf16)
+                    y_ref = fm.fused_chain_reference(x, layers, dtype)
+                got = fm.fused_mlp_bwd_cuda(x, layers, g, bf16)
+                again = fm.fused_mlp_bwd_cuda(x, layers, g, bf16)
+                ref = fm.fused_chain_bwd_reference(x, layers, g, dtype)
+                torch.cuda.synchronize()
+                got_all, ref_all = [got[0], *got[1], *got[2]], [ref[0], *ref[1], *ref[2]]
+                bitwise = all(torch.equal(a, b) for a, b in
+                              zip(got_all, [again[0], *again[1], *again[2]]))
+                names = (["dx"] + [f"dW{i}" for i in range(len(layers))]
+                         + [f"db{i}" for i in range(len(layers))])
+                errs = {"y": rel_norm(y, y_ref)}
+                errs.update({n: rel_norm(a, b) for n, a, b in zip(names, got_all, ref_all)})
+                worst_k = max(errs, key=errs.get)
+                tol = TOL_CHAIN[bf16]
+                log(f"K9/K10 fused_mlp {name} {chain_name(layers)} {rows} rows "
+                    f"{'bf16' if bf16 else 'fp32'}: rel norm err y {errs['y']:.3e} dx "
+                    f"{errs['dx']:.3e}, worst {worst_k} {errs[worst_k]:.3e} over {len(errs)} "
+                    f"outputs, tol {tol}; K10 bitwise equal over two launches: {bitwise}")
+                require(bitwise, f"K10 {name} {rows} rows: two launches differ")
+                for k, v in errs.items():
+                    require(v <= tol and math.isfinite(v),
+                            f"K9/K10 {name} {rows} bf16={bf16} {k} err {v} > {tol}")
+                if not bf16:
+                    worst["fused_mlp_fwd"] = max(worst["fused_mlp_fwd"], max_err(y, y_ref))
+                    worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], *(
+                        max_err(a, b) for a, b in zip(got_all, ref_all)))
+                del x, g, y, y_ref, got, again, ref, got_all, ref_all
+        del params
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_render_megakernel(dev):
+    """K11 (`render_megakernel.flagship_render`: equidistant bins shifted by
+    a per-ray offset, through K2's kernel) against its plain version at the
+    flagship width: 8192 rays x 128 samples fp32 and bf16 and a ragged 37
+    rays, offsets in [-interval, 0) as run_barf's offset -1 draws them; and
+    its refusal of a config that is not the flagship's."""
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import render_megakernel as rm
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    s, near = 128, 2.0
+    worst = 0.0
+    for n, bf16 in ((N_RAYS, False), (N_RAYS, True), (37, False)):
+        cfg = flagship_cfg(bf16)
+        params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
+        origs, dirs = random_rays(n, gen, dev)
+        offsets = -torch.rand((n, 1), generator=gen, device=dev) * (FAR - near) / s
+        args = (params, cfg, origs, dirs, offsets, 7.5, 2.5, s, near, FAR)
+        with torch.no_grad():
+            got = rm.flagship_render(*args)
+            ref = rm.render_megakernel_reference(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = TOL_BF16 if bf16 else TOL_FP32
+        log(f"K11 render_megakernel {n}x{s} {'bf16' if bf16 else 'fp32'}, per-ray offsets: "
+            f"rgb max abs err {err:.3e}, tol {tol}")
+        require(err <= tol and math.isfinite(err), f"K11 n={n} bf16={bf16} err {err}")
+        if not bf16:
+            worst = max(worst, err)
+    bad = dataclasses.replace(flagship_cfg(False), delayed_density=True)
+    try:
+        rm.flagship_render(params, bad, origs, dirs, offsets, 7.5, 2.5, s, near, FAR)
+    except ValueError:
+        log("K11 refuses a config that is not the flagship's (ValueError)")
+    else:
+        raise AssertionError("K11 took a config that is not the flagship's")
+    return worst
+
+
+def mip_batch(dm, n: int, seed: int, dev) -> dict:
+    """A train batch of n rays from the scene's ray store on the card (the
+    Mip config's near / far 1/10 - 1/3 hold in its space transform, not for
+    `random_rays`)."""
+    from nerf_experiments_tpu_torch.data import sampler
+
+    dm.setup("fit")
+    store = sampler.make_ray_store(dm.dataset_train, dev)
+    idx = torch.randint(0, store.n_rays, (n,), generator=torch.Generator(dev).manual_seed(seed),
+                        device=dev)
+    return sampler.gather_batch_arrays(store.arrays(), store.pixel_width, idx)
+
+
+def phase_fused_plug_step(dev):
+    """One plain train step of the Mip-NeRF config with `FusedNerfMLPDef`
+    (K9 / K10 in both stages) against the same step with `NerfMLPDef`, from
+    one state, batch and generator seed, fp32 and bf16: the loss and every
+    gradient handed to Adam at phase 8's tolerances. The fused step takes
+    the plain step's fine bins, which are resampled from coarse weights that
+    the two paths round differently (phase 18's reason)."""
+    import copy
+    from unittest import mock
+
+    from nerf_experiments_tpu_torch.ops import sampling
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    resample = sampling.sample_pdf_weighted_intervals
+    for bf16 in (False, True):
+        cfgs = {fused: mip_config(bf16, fused)[0] for fused in (False, True)}
+        cfg, dm = mip_config(bf16)
+        params = barf_sys.init(torch.Generator().manual_seed(40), cfg).to(dev)
+        batch = mip_batch(dm, MIP_RAYS, 41, dev)
+        out, grads, fine_bins = {}, {}, []
+        for fused in (False, True):
+            state = barf_sys.init_state(cfgs[fused], copy.deepcopy(params))
+            grads[fused] = {}
+            adam_step = state.optimizer.step
+
+            def capture_then_step():  # keep the gradients Adam is handed
+                grads[fused].update({k: p.grad.clone()
+                                     for k, p in state.params.named_parameters()})
+                adam_step()
+
+            def pinned_fine_bins(*a, **k):
+                if not fine_bins:
+                    fine_bins.append(resample(*a, **k))
+                return fine_bins[0]
+
+            state.optimizer.step = capture_then_step
+            step = barf_sys.make_train_step(cfgs[fused])
+            gen = torch.Generator(device=dev).manual_seed(42)
+            with mock.patch.object(sampling, "sample_pdf_weighted_intervals", pinned_fine_bins):
+                state, metrics = step(state, batch, gen, 0.0, 0.0, 0.0)
+            out[fused] = (float(metrics["loss"]), bool(metrics["grads_finite"]))
+        torch.cuda.synchronize()
+        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]}
+        worst = max(grad_errs, key=grad_errs.get)
+        log(f"Mip-NeRF train step {'bf16' if bf16 else 'fp32'} ({MIP_RAYS} rays, 192 + 64 "
+            f"samples): loss FusedNerfMLPDef {out[True][0]:.6f} NerfMLPDef {out[False][0]:.6f} "
+            f"rel err {loss_err:.3e} (tol {TOL_STEP_LOSS[bf16]}); gradient rel norm err worst "
+            f"{worst} {grad_errs[worst]:.3e} over {len(grad_errs)} tensors, tol "
+            f"{TOL_STEP_GRAD[bf16]}")
+        require(out[True][1] and out[False][1], "Mip step: non-finite gradients")
+        require(loss_err <= TOL_STEP_LOSS[bf16], f"Mip step loss err {loss_err}")
+        for k, v in grad_errs.items():
+            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v), f"Mip gradient {k} err {v}")
+        del params, grads, fine_bins
+        torch.cuda.empty_cache()
+
+
+def phase_mip_training(dev, workdir):
+    """The slice's entry points end to end on the 32^2 scene, with K9, K10,
+    K11, K1 and K3 counted: `run_mip_nerf.main` at full width (300 steps: the
+    train PSNR must rise by > 1 dB; then --resume), `run_bip_barf.main` (20
+    steps), `render_views --entry mip|bip` on their checkpoints (each a crop
+    against the plain CPU path), the `FusedNerfMLPDef` configuration through
+    `build_barf_experiment` and the trainer (200 steps: K9 / K10 on every
+    chain of both stages, the PSNR rises by > 1 dB), a few steps of each
+    thin entry point, and phase 9's BARF checkpoint served through K11."""
+    import numpy as np
+
+    from nerf_experiments_tpu_torch.cameras import calibration
+    from nerf_experiments_tpu_torch.experiments import (
+        common, render_views, run_barf, run_bip_barf, run_mip_blur_test, run_mip_nerf,
+        run_naive_as_barf, run_naive_to_vanilla, run_sampling_test, run_vanilla_as_barf)
+    from nerf_experiments_tpu_torch.ops import render_megakernel
+    from nerf_experiments_tpu_torch.ops.fused_mlp import fused_mlp_bwd_cuda, fused_mlp_fwd_cuda
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+    from nerf_experiments_tpu_torch.training.trainer import TrainerConfig
+
+    fns = {"fused_mlp_fwd": fused_mlp_fwd_cuda, "fused_mlp_bwd": fused_mlp_bwd_cuda,
+           "render_megakernel": render_megakernel.flagship_render,
+           "render_fwd": render_fwd_cuda, "render_bwd": render_bwd_cuda}
+    total = dict.fromkeys(fns, 0)
+
+    def counted(entry, *a):
+        for fn in fns.values():
+            fn.launches = 0
+        result = entry(*a)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items()}
+        for k, v in launches.items():
+            total[k] += v
+        return result, launches
+
+    def psnrs(out):
+        rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+        return ([r["psnr"] for r in rows if "psnr" in r and math.isfinite(r["psnr"])],
+                [r["train_rays_per_sec"] for r in rows if "train_rays_per_sec" in r])
+
+    base = ["--image_size", str(MIP_IMAGE), "--batch_size", str(MIP_RAYS), "--seed", "7",
+            "--device", str(dev)]
+    out_mip = os.path.join(workdir, "mip")
+    steps = 300
+    state, launches = counted(run_mip_nerf.main, base + [
+        "--max_steps", str(steps), "--checkpoint_every_n_epochs", "10", "--out_dir", out_mip])
+    p, rates = psnrs(out_mip)
+    log(f"run_mip_nerf fp32 {MIP_IMAGE}^2 batch {MIP_RAYS} (192 + 64 samples, 4x256): "
+        f"{state.step} steps, psnr {p[0]:.3f} -> {p[-1]:.3f} over {len(p)} log rows, last "
+        f"train_rays_per_sec {rates[-1]:.0f}, launches {launches}")
+    require(state.step == steps and p[-1] > p[0] + 1.0, f"run_mip_nerf PSNR {p}")
+    require(launches["render_bwd"] == 2 * steps and launches["render_fwd"] >= 2 * steps,
+            "run_mip_nerf: K1 / K3 not in both stages of every step")
+    state, launches = counted(run_mip_nerf.main, base + [
+        "--max_steps", str(steps + 10), "--resume", "--checkpoint_every_n_epochs", "10",
+        "--out_dir", out_mip])
+    log(f"run_mip_nerf --resume: {state.step} steps, launches {launches}")
+    require(state.step == steps + 10 and launches["render_bwd"] == 20, "run_mip_nerf --resume")
+
+    out_bip = os.path.join(workdir, "bip")
+    state, launches = counted(run_bip_barf.main, base + [
+        "--max_steps", "20", "--out_dir", out_bip])
+    p, _ = psnrs(out_bip)
+    log(f"run_bip_barf fp32 {MIP_IMAGE}^2 (126 samples, offset -1, blur and IPE sigma 200): "
+        f"{state.step} steps, psnr {p[-1]:.3f}, launches {launches}")
+    require(state.step == 20 and launches["render_bwd"] == 20, "run_bip_barf")
+
+    serve = {"mip": (out_mip, ["--samples_per_ray", "192", "--samples_per_ray_proposal", "64"],
+                     steps + 10),
+             "bip": (out_bip, ["--samples_per_ray", "126"], 20)}
+    for entry, (out, flags, last) in serve.items():
+        ckpt = os.path.join(out, "ckpt")
+        argv = (["--ckpt_dir", ckpt, "--entry", entry, "--image_size", str(MIP_IMAGE),
+                 "--seed", "7"] + flags)
+        summary, launches = counted(render_views.main, argv + [
+            "--split", "test", "--n_images", "2", "--chunk", "4096", "--device", str(dev),
+            "--out_dir", os.path.join(out, "render")])
+        log(f"render_views --entry {entry} (step {summary['ckpt_step']}): mean_psnr "
+            f"{summary['mean_psnr']:.3f}, launches {launches}")
+        require(summary["ckpt_step"] == last and math.isfinite(summary["mean_psnr"])
+                and launches["render_fwd"] > 0, f"render_views --entry {entry}")
+        # a crop of test view 0 on the card vs the plain path on the CPU
+        cfg, dm = {"mip": render_views._build_mip, "bip": render_views._build_bip}[entry](
+            render_views.parse_args(argv))
+        params = CheckpointManager(ckpt).restore(
+            barf_sys.init(torch.Generator().manual_seed(7), cfg))
+        dm.setup("test")
+        ds = dm.dataset_test
+        raw = torch.as_tensor(dm.dataset_train.camera_origins)
+        noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy)
+        lo = MIP_IMAGE * MIP_IMAGE // 2
+        rays = (ds.ray_origins[0][lo:lo + 256], ds.ray_directions[0][lo:lo + 256])
+        alphas = barf_sys.model_def(cfg.radiance).full_alphas()
+        with torch.no_grad():
+            plain = render_views.render_image(params, cfg, *rays,
+                                              barf_sys.val_gauge(params, raw, noisy),
+                                              float(ds.pixel_width), 256, "cpu", *alphas)
+            params.to(dev)
+            kern = render_views.render_image(
+                params, cfg, *rays, barf_sys.val_gauge(params, raw.to(dev), noisy.to(dev)),
+                float(ds.pixel_width), 256, dev, *alphas)
+        err = float(np.abs(kern - plain).max())
+        log(f"render_views --entry {entry}: 256-ray crop, card vs plain CPU path max abs err "
+            f"{err:.3e}, tol {TOL_FP32}")
+        require(err <= TOL_FP32, f"{entry} crop err {err}")
+
+    # the fused-chain plug, as the JAX package's tests reach it
+    cfg, dm = mip_config(fused=True)
+    out_fused = os.path.join(workdir, "mip_fused")
+    fused_steps = 200
+    exp = common.build_barf_experiment(
+        cfg, dm, TrainerConfig(max_steps=fused_steps, batch_size=MIP_RAYS, seed=7),
+        out_fused, device=dev, image_log_names=((), ["r_2"]))
+    state, launches = counted(exp.fit)
+    p, rates = psnrs(out_fused)
+    log(f"FusedNerfMLPDef Mip-NeRF fp32 through build_barf_experiment: {state.step} steps, "
+        f"psnr {p[0]:.3f} -> {p[-1]:.3f} over {len(p)} log rows, last train_rays_per_sec "
+        f"{rates[-1]:.0f}, launches {launches}")
+    require(state.step == fused_steps and p[-1] > p[0] + 1.0, f"FusedNerfMLPDef PSNR {p}")
+    require(launches["fused_mlp_bwd"] == 6 * fused_steps
+            and launches["fused_mlp_fwd"] >= 6 * fused_steps,
+            "FusedNerfMLPDef: K9 / K10 not on the 3 chains of both stages of every step")
+    require(launches["render_bwd"] == 2 * fused_steps, "FusedNerfMLPDef: K3 not on every step")
+
+    thin = (("run_vanilla_as_barf", run_vanilla_as_barf.main, []),
+            ("run_naive_as_barf", run_naive_as_barf.main, []),
+            ("run_mip_blur_test", run_mip_blur_test.main, []),
+            ("run_naive_to_vanilla", run_naive_to_vanilla.main, []),
+            ("run_sampling_test", run_sampling_test.main, ["--steps_per_cell", "3"]))
+    for name, main_fn, extra in thin:
+        out = os.path.join(workdir, name)
+        steps_flag = [] if extra else ["--max_steps", "5", "--checkpoint_every_n_epochs", "0"]
+        result, launches = counted(main_fn, base + steps_flag + extra + ["--out_dir", out])
+        log(f"{name}: {len(result) if isinstance(result, list) else result.step} "
+            f"{'cells' if isinstance(result, list) else 'steps'}, launches {launches}")
+        require(launches["render_bwd"] >= 5 or (extra and launches["render_bwd"] >= 6 * 3),
+                f"{name}: the compositing backward not on every step")
+
+    # serving through K11: phase 9's dense BARF checkpoint, test view 0
+    dense = run_barf.parse_args(["--image_size", "32", "--samples_per_ray", "128",
+                                 "--camera_origin_noise_sigma", "0.0",
+                                 "--camera_rotation_noise_sigma", "0.0"])
+    cfg, dm = run_barf.build_config(dense)
+    params = CheckpointManager(os.path.join(workdir, "train_dense", "ckpt")).restore(
+        barf_sys.init(torch.Generator().manual_seed(7), cfg)).to(dev)
+    dm.setup("test")
+    ds = dm.dataset_test
+    raw = torch.as_tensor(dm.dataset_train.camera_origins, device=dev)
+    noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy, device=dev)
+    target = torch.as_tensor(ds.images[0, :, :, -1, :].reshape(-1, 3), device=dev)
+    with torch.no_grad():
+        gauge = barf_sys.val_gauge(params, raw, noisy)
+        o, d = calibration.validation_transform_rays(
+            torch.as_tensor(ds.ray_origins[0], device=dev),
+            torch.as_tensor(ds.ray_directions[0], device=dev), gauge)
+        o, d = o.contiguous(), d.contiguous()
+        alphas = barf_sys.model_def(cfg.radiance).full_alphas()
+        n = o.shape[0]
+        interval = (cfg.far - cfg.near) / cfg.samples_per_ray_radiance
+        offsets = {"0": torch.zeros((n, 1), device=dev),
+                   "-U(0, 1) interval": -torch.rand(
+                       (n, 1), generator=torch.Generator(dev).manual_seed(43), device=dev)
+                   * interval}
+        images = {}
+        for tag, off in offsets.items():
+            rgb, launches = counted(render_megakernel.flagship_render, params.radiance,
+                                    cfg.radiance, o, d, off, *alphas,
+                                    cfg.samples_per_ray_radiance, cfg.near, cfg.far,
+                                    cfg.density_scale)
+            images[tag] = rgb.clamp(0.0, 1.0)
+            mse = float(((images[tag] - target) ** 2).mean())
+            log(f"K11 serving phase 9's BARF checkpoint, test view 0 ({n} rays x "
+                f"{cfg.samples_per_ray_radiance} samples), offsets {tag}: psnr "
+                f"{-10 * math.log10(mse):.3f}, launches {launches}")
+            require(launches["render_megakernel"] == 1, "K11 not launched")
+    k2 = render_views.render_image(params, cfg, ds.ray_origins[0], ds.ray_directions[0],
+                                   gauge, float(ds.pixel_width), n, dev, *alphas)
+    err = max_err(images["0"].cpu(), torch.as_tensor(k2))
+    log(f"K11 with zero offsets vs render_views' K2 path on the same view: max abs err "
+        f"{err:.3e}, tol {TOL_FP32}")
+    require(err <= TOL_FP32, f"K11 vs K2 view err {err}")
+    return total
+
+
+def library_chain(x, ws, bs):
+    """The chain as one cuBLAS call a layer (`torch.addmm`) and a ReLU, in
+    the inputs' type (fp32; or bf16 on the tensor cores, bf16 outputs)."""
+    h = x
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        h = torch.addmm(b, h, w)
+        if i < len(ws) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def phase_mip_timing(dev):
+    """K9 / K10 on run_mip_nerf's three chains at 262,144 rows (one step's
+    rows) against the plain version and the cuBLAS chain (`torch.addmm` +
+    ReLU a layer, fp32 with TF32 off, and bf16; K10's: its forward and
+    autograd's backward), K11 against its plain version and K2 at 8192 x
+    128, and the Mip-NeRF train step at batch 1024 with `FusedNerfMLPDef`
+    against `NerfMLPDef`, in turns, with a profile of one step of each."""
+    import copy
+
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import fused_mlp as fm
+    from nerf_experiments_tpu_torch.ops import render_megakernel as rm
+    from nerf_experiments_tpu_torch.ops import train_megakernel
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    times = {}
+    cfg, dm = mip_config()
+    params = nerf_mlp.init(torch.Generator().manual_seed(20), cfg.radiance).to(dev)
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        dtype = torch.bfloat16 if bf16 else None
+        lib_dtype = torch.bfloat16 if bf16 else torch.float32
+        tot = dict.fromkeys(("k9", "p9", "l9", "k10", "p10", "l10"), 0.0)
+        for name, layers in chain_layers(params):
+            x, g = chain_inputs(layers, MIP_ROWS, 22, dev)
+            lw = [l.w.detach().to(lib_dtype).requires_grad_(True) for l in layers]
+            lb = [l.b.detach().to(lib_dtype).requires_grad_(True) for l in layers]
+            xl, gl = x.to(lib_dtype).requires_grad_(True), g.to(lib_dtype)
+
+            def lib_bwd():
+                y = library_chain(xl, lw, lb)
+                return torch.autograd.grad(y, [xl, *lw, *lb], gl)
+
+            with torch.no_grad():
+                t = {"k9": cuda_time_ms(lambda: fm.fused_mlp_fwd_cuda(x, layers, bf16)),
+                     "p9": cuda_time_ms(lambda: fm.fused_chain_reference(x, layers, dtype)),
+                     "l9": cuda_time_ms(lambda: library_chain(xl, lw, lb))}
+            t.update(k10=cuda_time_ms(lambda: fm.fused_mlp_bwd_cuda(x, layers, g, bf16)),
+                     p10=cuda_time_ms(lambda: fm.fused_chain_bwd_reference(x, layers, g, dtype)),
+                     l10=cuda_time_ms(lib_bwd))
+            log(f"time K9/K10 {name} {chain_name(layers)} {MIP_ROWS} rows {tag}: K9 "
+                f"{t['k9']:.3f} ms (plain {t['p9']:.3f}, cuBLAS addmm chain {t['l9']:.3f}); K10 "
+                f"{t['k10']:.3f} ms (plain {t['p10']:.3f}, cuBLAS chain forward + backward "
+                f"{t['l10']:.3f}; workspace "
+                f"{fm.bwd_workspace_bytes(MIP_ROWS, chain_dims(layers), bf16) / 2**30:.2f} GiB)")
+            for k in tot:
+                tot[k] += t[k]
+            del x, g, xl, gl, lw, lb
+            torch.cuda.empty_cache()
+        times[f"K9_{tag}"] = (tot["k9"], tot["p9"], tot["l9"])
+        times[f"K10_{tag}"] = (tot["k10"], tot["p10"], tot["l10"])
+        log(f"time K9/K10 the three chains, {MIP_ROWS} rows {tag}: K9 {tot['k9']:.3f} ms "
+            f"(plain {tot['p9']:.3f}, cuBLAS {tot['l9']:.3f}), K10 {tot['k10']:.3f} ms (plain "
+            f"{tot['p10']:.3f}, cuBLAS {tot['l10']:.3f})")
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    s, near = 128, 2.0
+    origs, dirs = random_rays(N_RAYS, gen, dev)
+    offsets = -torch.rand((N_RAYS, 1), generator=gen, device=dev) * (FAR - near) / s
+    fcfg = flagship_cfg(False)
+    fparams = nerf_mlp.init(torch.Generator().manual_seed(3), fcfg).to(dev)
+    args = (fparams, fcfg, origs, dirs, offsets, 7.5, 2.5, s, near, FAR)
+    ts, te = rm.equidistant_bins(offsets, s, near, FAR)
+    with torch.no_grad():
+        k = cuda_time_ms(lambda: rm.flagship_render(*args))
+        p = cuda_time_ms(lambda: rm.render_megakernel_reference(*args))
+        k2 = cuda_time_ms(lambda: train_megakernel.flagship_render(
+            fparams, fcfg, origs, dirs, ts, te, 7.5, 2.5))
+    times["K11"] = (k, p, k2)
+    log(f"time K11 render_megakernel {N_RAYS}x{s} fp32: kernel {k:.3f} ms, plain {p:.3f} ms; "
+        f"K2 on the same bins {k2:.3f} ms")
+
+    batch = mip_batch(dm, MIP_RAYS, 44, dev)
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        cfgs = {fused: mip_config(bf16, fused)[0] for fused in (False, True)}
+        bparams = barf_sys.init(torch.Generator().manual_seed(45), cfgs[False]).to(dev)
+        res = {}
+        for fused in (False, True, True, False):
+            state = barf_sys.init_state(cfgs[fused], copy.deepcopy(bparams))
+            step = barf_sys.make_train_step(cfgs[fused])
+            run = lambda: step(state, batch, torch.Generator(device=dev).manual_seed(46),
+                               0.0, 0.0, 0.0)
+            res.setdefault(fused, []).append(cuda_time_ms(run, iters=3, warmup=1))
+            del state
+            torch.cuda.empty_cache()
+        k, p = min(res[True]), min(res[False])
+        times[f"step_{tag}"] = (k, p)
+        log(f"Mip-NeRF train step {tag} ({MIP_RAYS} rays, 192 + 64 samples): FusedNerfMLPDef "
+            f"{res[True]} ms -> {MIP_RAYS / k * 1e3:.0f} rays/s; NerfMLPDef {res[False]} ms -> "
+            f"{MIP_RAYS / p * 1e3:.0f} rays/s")
+        for fused in (True, False):
+            state = barf_sys.init_state(cfgs[fused], copy.deepcopy(bparams))
+            step = barf_sys.make_train_step(cfgs[fused])
+            profile_step(lambda: step(state, batch, torch.Generator(device=dev).manual_seed(46),
+                                      0.0, 0.0, 0.0),
+                         f"Mip-NeRF train step {tag} {'FusedNerfMLPDef' if fused else 'NerfMLPDef'}")
+            del state
+            torch.cuda.empty_cache()
+    return times
+
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -1498,8 +2034,9 @@ def weight_count(module) -> int:
 
 def kernel_bounds():
     """The bound of every kernel at the shape its time was taken at (K1 / K3
-    8192 x 64, K2 / K4 8192 x 128 and K6 8192 x 192 fp32, K5 4096 x 192
-    fp32, K7 / K8 524,288 3-D points at L16 F2 T 2^16). The operation counts
+    8192 x 64, K2 / K4 / K11 8192 x 128 and K6 8192 x 192 fp32, K5 4096 x
+    192 fp32, K7 / K8 524,288 3-D points at L16 F2 T 2^16, K9 / K10
+    run_mip_nerf's three chains at 262,144 rows fp32). The operation counts
     are those of the layers' multiply-adds (2 per weight a sample: forward;
     6: forward and both backward products) or, for the memory-bound
     kernels, a count per element from the source (K1 ~16 a sample, K3 ~30,
@@ -1526,6 +2063,19 @@ def kernel_bounds():
                                    B * L * (6 * D + 2**D * (D - 1 + 2 * F)))
     out["hash_encode_bwd"] = bound(f32 * (B * D + B * L * F + 2 * L * T * F + B * D),
                                    B * L * 2**D * (4 * F + D * (D + 2)))
+    # K9 / K10: run_mip_nerf's three chains at MIP_ROWS rows each; K9 reads x
+    # and the weights and writes y, K10 also reads g and writes dx and dW / db
+    mip = nerf_mlp.init(torch.Generator().manual_seed(0), mip_config()[0].radiance)
+    io = [(l[0].w.shape[0], l[-1].w.shape[1]) for _, l in chain_layers(mip)]
+    weights = sum(p.numel() for p in mip.parameters())
+    rows_io = sum(d0 + dl for d0, dl in io)
+    out["fused_mlp_fwd"] = bound(f32 * (MIP_ROWS * rows_io + weights),
+                                 2 * weight_count(mip) * MIP_ROWS)
+    out["fused_mlp_bwd"] = bound(f32 * (MIP_ROWS * (rows_io + sum(d0 for d0, _ in io))
+                                        + 2 * weights),
+                                 6 * weight_count(mip) * MIP_ROWS)
+    # K11: K2's work at 8192 x 128 (rays and offsets in, rgb out)
+    out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 2 * macs * N_RAYS * 128)
     return out
 
 
@@ -1583,17 +2133,25 @@ def main() -> int:
         run(18, phase_ingp_train_step, dev)
         ingp_launches = run(19, phase_ingp_training, dev, workdir)
         ingp_times = run(20, phase_ingp_timing, dev)
+        chain_err = run(21, phase_fused_mlp, dev)
+        k11_err = run(22, phase_render_megakernel, dev)
+        run(23, phase_fused_plug_step, dev)
+        mip_launches = run(24, phase_mip_training, dev, workdir)
+        mip_times = run(25, phase_mip_timing, dev)
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
     # (inputs rotated past the L2), K7 and K8 (table in L2), CUDA events per
-    # call for K2, K4, K5 (4096 x 192) and K6 (8192 x 192);
-    # library_ms: the PyTorch call that does K7's / K8's table access alone
+    # call for K2, K4, K5 (4096 x 192), K6 (8192 x 192), K11 (8192 x 128) and
+    # K9 / K10 (the three chains' calls summed, 262,144 rows);
+    # library_ms: the PyTorch call that does K7's / K8's table access alone,
+    # and for K9 / K10 the cuBLAS chain below
     kernels = {"kernels": [
         {"name": "render_fwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
          "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
-         + garf_launches["render_fwd"] + ingp_launches["render_fwd"],
+         + garf_launches["render_fwd"] + ingp_launches["render_fwd"]
+         + mip_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
@@ -1606,7 +2164,8 @@ def main() -> int:
         {"name": "render_bwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
-         "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"],
+         "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"]
+         + mip_launches["render_bwd"],
          "max_abs_err": k3_err,
          "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
         {"name": "flagship_train", "route": "cuda",
@@ -1634,12 +2193,34 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/hashgrid_pallas.py:87",
          "launches": ingp_launches["hash_encode_bwd"], "max_abs_err": k8_err,
          "ms": ingp_times["K8"][0], "plain_ms": ingp_times["K8"][1]},
+        {"name": "fused_mlp_fwd", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "nerf_experiments_tpu/ops/fused_mlp.py:62",
+         "launches": mip_launches["fused_mlp_fwd"], "max_abs_err": chain_err["fused_mlp_fwd"],
+         "ms": mip_times["K9_fp32"][0], "plain_ms": mip_times["K9_fp32"][1]},
+        {"name": "fused_mlp_bwd", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/fused_mlp.cu",
+         "replaces": "nerf_experiments_tpu/ops/fused_mlp.py:78",
+         "launches": mip_launches["fused_mlp_bwd"], "max_abs_err": chain_err["fused_mlp_bwd"],
+         "ms": mip_times["K10_fp32"][0], "plain_ms": mip_times["K10_fp32"][1]},
+        {"name": "render_megakernel", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/flagship_render.cu",
+         "replaces": "nerf_experiments_tpu/ops/render_megakernel.py:73",
+         "launches": mip_launches["render_megakernel"], "max_abs_err": k11_err,
+         "ms": mip_times["K11"][0], "plain_ms": mip_times["K11"][1]},
     ]}
     bounds = kernel_bounds()
-    library = {"hash_encode_fwd": ingp_times["K7"][2], "hash_encode_bwd": ingp_times["K8"][2]}
+    # K9 / K10: the three chains as cuBLAS `addmm` + ReLU calls (a chain of
+    # calls, not one), fp32 with TF32 off; K10's: that forward and autograd's
+    # backward
+    library = {"hash_encode_fwd": ingp_times["K7"][2], "hash_encode_bwd": ingp_times["K8"][2],
+               "fused_mlp_fwd": mip_times["K9_fp32"][2],
+               "fused_mlp_bwd": mip_times["K10_fp32"][2]}
     for k in kernels["kernels"]:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = library.get(k["name"])
+    idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
+    require(not idle, f"kernels never launched on their main paths: {idle}")
     for k in kernels["kernels"]:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}): {k['bound_ms'] / k['ms']:.3f} of the roofline")

@@ -61,6 +61,16 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="torch device; a run without a card needs --device cpu")
 
 
+def resume_latest(exp: "BarfExperiment", out_dir: str) -> "BarfExperiment":
+    """Restore the latest checkpoint in out_dir/ckpt into `exp`'s state, if
+    there is one (the reference's `trainer.fit(..., ckpt_path=...)`)."""
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    if mgr.latest_step() is not None:
+        exp.state = mgr.restore(exp.state)
+        print(f"resumed from step {mgr.latest_step()}")
+    return exp
+
+
 @dataclasses.dataclass
 class BarfExperiment:
     cfg: barf_sys.BarfConfig

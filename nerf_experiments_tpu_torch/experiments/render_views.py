@@ -5,8 +5,10 @@ whole images (val/test through the Kabsch gauge, train through the learned
 extrinsics), writes PNGs, and prints per-image + mean PSNR as one JSON line.
 On a CUDA device the flagship configs render through the hand-written
 kernels (`ops/train_megakernel.py:flagship_render`, and the compositing
-kernel for a proposal stage); a run_3d_ingp checkpoint (`--entry ingp`)
-through the hash-grid kernel and the compositing kernel.
+kernel for a proposal stage); a run_mip_nerf or run_bip_barf checkpoint
+(`--entry mip|bip`: integrated encodings) through plain torch and the
+compositing kernel; a run_3d_ingp checkpoint (`--entry ingp`) through the
+hash-grid kernel and the compositing kernel.
 
     python -m nerf_experiments_tpu_torch.experiments.render_views \\
         --ckpt_dir runs/latest/ckpt --scene_path synthetic --split test
@@ -43,11 +45,13 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_dir", type=str, required=True)
     p.add_argument("--ckpt_step", type=int, default=None)
     p.add_argument("--entry", choices=["barf", "mip", "bip", "ingp"], default="barf",
-                   help="which experiment entry built the checkpoint: run_barf "
-                        "or run_3d_ingp (hash-grid NeRF; fine / coarse samples "
+                   help="which experiment entry built the checkpoint: "
+                        "run_barf-family configs, run_mip_nerf (IPE cone "
+                        "casting, near/far from its own defaults), "
+                        "run_bip_barf (Mip-BARF: IPE + sigma schedule), or "
+                        "run_3d_ingp (hash-grid NeRF; fine / coarse samples "
                         "from --samples_per_ray / --samples_per_ray_proposal, "
-                        "MLP from --hidden_dim / --n_hidden); 'mip' and 'bip' "
-                        "are not ported yet")
+                        "MLP from --hidden_dim / --n_hidden)")
     # run_3d_ingp grid flags (used when --entry ingp rebuilds the model)
     p.add_argument("--ingp_n_levels", type=int, default=16)
     p.add_argument("--ingp_n_features", type=int, default=2)
@@ -71,6 +75,43 @@ def parse_args(argv=None):
                        default=getattr(defaults, name))
     common.add_common_args(p)
     return p.parse_args(argv)
+
+
+def _build_mip(args):
+    """(BarfConfig, data module) of the run_mip_nerf experiment these flags name."""
+    from nerf_experiments_tpu_torch.experiments import run_mip_nerf
+
+    mip_args = run_mip_nerf.parse_args([
+        "--scene_path", args.scene_path, "--image_size", str(args.image_size),
+        "--batch_size", str(args.batch_size),
+        "--samples_per_ray", str(args.samples_per_ray),
+        "--samples_per_ray_proposal", str(args.samples_per_ray_proposal),
+        "--hidden_dim", str(args.hidden_dim), "--n_hidden", str(args.n_hidden),
+        "--n_segments", str(args.n_segments),
+        "--checkpoint_every_n_epochs", "0",
+        "--seed", str(args.seed), "--out_dir", args.out_dir,
+    ] + (["--bf16"] if args.bf16 else []))
+    return run_mip_nerf.build_config(mip_args)
+
+
+def _build_bip(args):
+    """(BarfConfig, data module) of the run_bip_barf experiment these flags name."""
+    from nerf_experiments_tpu_torch.experiments import run_bip_barf
+
+    bip_args = run_bip_barf.parse_args([
+        "--scene_path", args.scene_path, "--image_size", str(args.image_size),
+        "--batch_size", str(args.batch_size),
+        "--camera_origin_noise_sigma", str(args.camera_origin_noise_sigma),
+        "--camera_rotation_noise_sigma", str(args.camera_rotation_noise_sigma),
+        "--samples_per_ray", str(args.samples_per_ray),
+        "--samples_per_ray_proposal", str(args.samples_per_ray_proposal),
+        "--hidden_dim", str(args.hidden_dim), "--n_hidden", str(args.n_hidden),
+        "--start_blur_sigma", str(args.start_blur_sigma),
+        "--max_blur_sigma", str(args.start_blur_sigma),
+        "--checkpoint_every_n_epochs", "0",
+        "--seed", str(args.seed), "--out_dir", args.out_dir,
+    ] + (["--bf16"] if args.bf16 else []))
+    return run_bip_barf.build_config(bip_args)
 
 
 def _build_ingp(args):
@@ -97,16 +138,13 @@ def _build_ingp(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.entry in ("mip", "bip"):
-        raise NotImplementedError(
-            f"--entry {args.entry} is not ported yet: the Mip/BIP encodings come "
-            "with a later PR of the port (ROADMAP A10)")
     if args.serve_block > 1:
         raise NotImplementedError(
             "--serve_block > 1 (render_block_coarse) is not ported yet: it comes "
             "with the block-coarse PR of the port (ROADMAP A9)")
-    if args.entry == "ingp":
-        cfg, dm = _build_ingp(args)
+    entry_configs = {"mip": _build_mip, "bip": _build_bip, "ingp": _build_ingp}
+    if args.entry in entry_configs:
+        cfg, dm = entry_configs[args.entry](args)
         params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(args.device)
         return _render(args, cfg, dm, params)
     barf_args = run_barf.parse_args([

@@ -19,7 +19,6 @@ trains, and with `--resume` continues from the latest checkpoint in
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
@@ -29,7 +28,6 @@ from nerf_experiments_tpu_torch.encodings.fourier import Barf
 from nerf_experiments_tpu_torch.experiments import common
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.systems import barf as barf_sys
-from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
 from nerf_experiments_tpu_torch.training.trainer import TrainerConfig
 
 
@@ -208,10 +206,7 @@ def main(argv=None) -> barf_sys.TrainState:
     args = parse_args(argv)
     exp = build(args)
     if args.resume:
-        mgr = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
-        if mgr.latest_step() is not None:
-            exp.state = mgr.restore(exp.state)
-            print(f"resumed from step {mgr.latest_step()}")
+        common.resume_latest(exp, args.out_dir)
     return exp.fit()
 
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_experiments_tpu_torch.encodings.fourier import Encoding
+from nerf_experiments_tpu_torch.encodings.fourier import Encoding, encode_position
 from nerf_experiments_tpu_torch.models.common import (
     Dense,
     ParamGroup,
@@ -158,9 +158,11 @@ def apply(
     pixel_width_sigma: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(density, rgb) for flattened samples pos/dir (B, 3); alpha_* are the
-    BARF annealing scalars of the two encoders (`NerfModel.forward:96-141`).
-    `pixel_width_sigma` feeds integrated encoders, which come later."""
-    pos_enc = cfg.position_encoder(pos, dir, pixel_width, t_start, t_end, alpha=alpha_pos)
+    BARF annealing scalars of the two encoders (`NerfModel.forward:96-141`);
+    `pixel_width_sigma` is the scheduled extra blur of integrated (Mip)
+    position encoders."""
+    pos_enc = encode_position(cfg.position_encoder, pos, dir, pixel_width, t_start, t_end,
+                              alpha_pos, pixel_width_sigma)
     dir_enc = cfg.direction_encoder(dir, alpha=alpha_dir)
     if cfg.compute_dtype is not None:
         pos_enc = pos_enc.to(cfg.compute_dtype)

@@ -108,6 +108,22 @@ def flagship_render(
             params, cfg, origs, dirs, t_start, t_end, alpha_pos, alpha_dir,
             density_scale, return_weights)
 
+    out = launch_render_kernel(params, cfg, origs, dirs, t_start, t_end, alpha_pos, alpha_dir,
+                               density_scale, return_weights)
+    flagship_render.launches += 1
+    return out
+
+
+flagship_render.launches = 0
+
+
+def launch_render_kernel(params, cfg, origs, dirs, t_start, t_end, alpha_pos: float,
+                         alpha_dir: float, density_scale: float, return_weights: bool = False):
+    """One launch of `netpu_flagship_render` (csrc/flagship_render.cu) on CUDA
+    tensors, as `flagship_render` returns its result. Shared by the two
+    wrappers of the kernel, which count their own launches:
+    `flagship_render` and `render_megakernel.flagship_render`."""
+    pe, de = cfg.position_encoder, cfg.direction_encoder
     layers = _layers(params)
     n, s = t_start.shape
     dev = origs.device
@@ -126,16 +142,12 @@ def flagship_render(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
             pointers(ws), pointers(bs),
             len(layers), int(bf16), n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
-            float(pe.scale), alpha_pos, alpha_dir, float(density_scale),
+            float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             out.data_ptr(), None if weights is None else weights.data_ptr(), stream)
     cuda_build.check(code, "netpu_flagship_render")
-    flagship_render.launches += 1
     if return_weights:
         return out[:, 0:3], out[:, 3:4], out[:, 4:5], weights
     return out[:, 0:3], out[:, 3:4], out[:, 4:5]
-
-
-flagship_render.launches = 0
 
 
 def flagship_train_grads_reference(

@@ -3,9 +3,11 @@ the objective, the train steps (plain autograd and fused), the optimizer,
 the validation gauge and the pose-error metric.
 
 Port of `nerf_experiments_tpu/systems/barf.py` for the flagship BARF
-configs (dense and proposal-hierarchical) and for any other radiance field
-behind the model-definition interface (`model_def`; the hash-grid NeRF of
-`run_3d_ingp`), which trains through the plain step; the occupancy grid and
+configs (dense and proposal-hierarchical), the Mip-NeRF / Mip-BARF configs
+(integrated encodings, shared proposal net, density scale 21) and any other
+radiance field behind the model-definition interface (`model_def`; the
+fused-MLP-chain plug `FusedNerfMLPDef`, the hash-grid NeRF of
+`run_3d_ingp`), which train through the plain step; the occupancy grid and
 block-coarse training and serving come later (ROADMAP A9).
 
 `forward(..., fused=True)` runs the radiance pass through the flagship render
@@ -31,9 +33,11 @@ from torch import nn
 
 from nerf_experiments_tpu_torch.cameras import calibration, extrinsics
 from nerf_experiments_tpu_torch.data.sampler import blurred_pixel_colors
+from nerf_experiments_tpu_torch.encodings.fourier import encode_position
 from nerf_experiments_tpu_torch.models import nerf_mlp
-from nerf_experiments_tpu_torch.models.common import ParamGroup
+from nerf_experiments_tpu_torch.models.common import ParamGroup, softplus8
 from nerf_experiments_tpu_torch.ops import render, sampling
+from nerf_experiments_tpu_torch.ops.fused_mlp import fused_chain
 from nerf_experiments_tpu_torch.ops.metrics import psnr
 from nerf_experiments_tpu_torch.ops.train_megakernel import (
     flagship_render,
@@ -71,12 +75,51 @@ class NerfMLPDef:
         return nerf_mlp.from_numpy(tree, self.cfg, device=device)
 
     def alphas_at(self, epoch_frac: float) -> Tuple[float, float]:
-        return (self.cfg.position_encoder.alpha_at(epoch_frac),
-                self.cfg.direction_encoder.alpha_at(epoch_frac))
+        """Each encoder's annealed alpha; 0 for one that has none (Fourier,
+        Integrated), as the JAX package's scalar schedule gives it."""
+        return tuple(enc.alpha_at(epoch_frac) if hasattr(enc, "alpha_at") else 0.0
+                     for enc in (self.cfg.position_encoder, self.cfg.direction_encoder))
 
     def full_alphas(self) -> Tuple[float, float]:
         return (float(self.cfg.position_encoder.levels),
                 float(self.cfg.direction_encoder.levels))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedNerfMLPDef(NerfMLPDef):
+    """The NerfMLP with each segment and the colour head run as one fused
+    chain (`ops/fused_mlp.py:fused_chain`: K9 forward, K10 backward on a
+    CUDA tensor), the JAX package's radiance-field plug of the same name.
+    Same parameters, init and optimizer group as NerfMLPDef; the encodings,
+    concats and heads stay plain torch. With bf16 the chains keep their
+    outputs in fp32 where NerfMLPDef rounds every layer's output."""
+
+    def apply(self, params, pos, dir, pixel_width, t_start, t_end, alpha_pos, alpha_dir,
+              pixel_width_sigma=0.0):
+        cfg = self.cfg
+        pos_enc = encode_position(cfg.position_encoder, pos, dir, pixel_width, t_start, t_end,
+                                  alpha_pos, pixel_width_sigma)
+        dir_enc = cfg.direction_encoder(dir, alpha=alpha_dir)
+
+        z = pos_enc[:, :0]
+        for i, segment in enumerate(params.segments):
+            if not cfg.delayed_direction:
+                z = torch.cat([z, dir_enc], dim=-1)
+            z = fused_chain(torch.cat([z, pos_enc], dim=-1), segment.layers, cfg.compute_dtype)
+            if i < cfg.n_segments - 1:
+                z = torch.relu(z)
+
+        length = z.shape[-1] - (0 if cfg.delayed_density else 1)
+        if cfg.delayed_direction:
+            final_input = torch.cat([z[:, :length], dir_enc], dim=-1)
+        else:
+            final_input = z[:, :length]
+        final_output = fused_chain(final_input, params.color, cfg.compute_dtype)
+
+        density_raw = final_output[:, -1] if cfg.delayed_density else z[:, -1]
+        density = softplus8(density_raw.float())
+        rgb = torch.sigmoid(final_output[:, :3].float())
+        return density, rgb
 
 
 def model_def(model):

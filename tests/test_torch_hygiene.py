@@ -46,7 +46,16 @@ def test_port_imports_no_jax():
             "nerf_experiments_tpu_torch.models.ingp",
             "nerf_experiments_tpu_torch.data.single_image",
             "nerf_experiments_tpu_torch.experiments.run_3d_ingp",
-            "nerf_experiments_tpu_torch.experiments.run_2d_ingp"} <= set(mods)
+            "nerf_experiments_tpu_torch.experiments.run_2d_ingp",
+            "nerf_experiments_tpu_torch.ops.fused_mlp",
+            "nerf_experiments_tpu_torch.ops.render_megakernel",
+            "nerf_experiments_tpu_torch.experiments.run_mip_nerf",
+            "nerf_experiments_tpu_torch.experiments.run_bip_barf",
+            "nerf_experiments_tpu_torch.experiments.run_mip_blur_test",
+            "nerf_experiments_tpu_torch.experiments.run_vanilla_as_barf",
+            "nerf_experiments_tpu_torch.experiments.run_naive_as_barf",
+            "nerf_experiments_tpu_torch.experiments.run_naive_to_vanilla",
+            "nerf_experiments_tpu_torch.experiments.run_sampling_test"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -73,13 +82,15 @@ def test_kernel_sources_and_entry_points():
     cu, headers = cuda_build._sources()
     assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu",
                                     "garf_render.cu", "garf_train.cu", "garf_train_gauss.cu",
-                                    "garf_train_gabor.cu", "garf_train_sarf.cu", "hashgrid.cu"}
+                                    "garf_train_gabor.cu", "garf_train_sarf.cu", "hashgrid.cu",
+                                    "fused_mlp.cu"}
     assert {f.name for f in headers} >= {"flagship_common.cuh", "garf_common.cuh",
                                          "train_common.cuh", "garf_train.cuh"}
     assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render",
                                           "netpu_render_bwd", "netpu_flagship_train",
                                           "netpu_garf_render", "netpu_garf_train",
-                                          "netpu_hash_encode_fwd", "netpu_hash_encode_bwd"}
+                                          "netpu_hash_encode_fwd", "netpu_hash_encode_bwd",
+                                          "netpu_fused_mlp_fwd", "netpu_fused_mlp_bwd"}
 
 
 class FakeCuda(torch.Tensor):
@@ -104,7 +115,7 @@ def kernel_calls():
     from nerf_experiments_tpu_torch.models import garf, nerf_mlp
     from nerf_experiments_tpu_torch.ops.garf_megakernel import (
         garf_radiance_render, garf_radiance_train_grads)
-    from nerf_experiments_tpu_torch.ops import hashgrid
+    from nerf_experiments_tpu_torch.ops import fused_mlp, hashgrid, render_megakernel
 
     n, s = 4, 8
     cfg = dataclasses.replace(mlp_cfg(8, 2), n_hidden=1)
@@ -132,12 +143,20 @@ def kernel_calls():
                                                fake_cuda(n, 3)),
         "hash_encode_bwd": lambda: hashgrid.hash_encode_bwd_cuda(
             table(), fake_cuda(n, 3), fake_cuda(n, 4), hcfg),
+        "fused_chain": lambda: fused_mlp.fused_chain(fake_cuda(n, params.color[0].w.shape[0]),
+                                                     params.color),
+        "fused_mlp_bwd": lambda: fused_mlp.fused_mlp_bwd_cuda(
+            fake_cuda(n, params.color[0].w.shape[0]), params.color, fake_cuda(n, 3), False),
+        "render_megakernel": lambda: render_megakernel.flagship_render(
+            params, cfg, fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, 1), 1.0, 1.0, s, 2.0,
+            6.0),
     }
 
 
 @pytest.mark.parametrize("entry", ["flagship_render", "flagship_train", "render_bwd",
                                    "render_full", "render_rays", "garf_render",
-                                   "garf_train", "hash_encode", "hash_encode_bwd"])
+                                   "garf_train", "hash_encode", "hash_encode_bwd",
+                                   "fused_chain", "fused_mlp_bwd", "render_megakernel"])
 def test_cuda_tensor_without_nvcc_raises_the_nvcc_error(entry, tmp_path, monkeypatch):
     """A CUDA tensor goes to the kernel or the call raises: never a silent
     fall back to the plain version."""
@@ -178,8 +197,12 @@ def test_checkpoint_round_trip(tmp_path):
         CheckpointManager(str(tmp_path / "empty")).restore(b)
 
 
-@pytest.mark.parametrize("argv", [["--entry", "mip"], ["--serve_block", "4"]])
+@pytest.mark.parametrize("argv", [["--entry", "mip", "--serve_block", "4"],
+                                  ["--serve_block", "4"],
+                                  ["--entry", "bip", "--serve_block", "2"]])
 def test_render_views_refuses_what_is_not_ported(argv):
+    """Block-coarse serving is not ported for any entry; the Mip and BIP
+    entries themselves are."""
     from nerf_experiments_tpu_torch.experiments import render_views
 
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -208,7 +231,10 @@ def test_garf_entry_refuses_what_is_not_ported(argv):
 
 
 @pytest.mark.parametrize("entry", ["run_barf", "garf_main", "render_views", "run_3d_ingp",
-                                   "run_2d_ingp"])
+                                   "run_2d_ingp", "run_mip_nerf", "run_bip_barf",
+                                   "run_mip_blur_test", "run_vanilla_as_barf",
+                                   "run_naive_as_barf", "run_naive_to_vanilla",
+                                   "run_sampling_test"])
 def test_device_defaults_to_cuda(entry):
     """Every entry point runs on the card unless --device says otherwise,
     with no fallback to the CPU when CUDA is missing."""
