@@ -7,8 +7,14 @@ Phases, each raising on failure:
      `nerf_experiments_tpu_torch/csrc/` with nvcc and print the build time;
   2. hold the compositing kernel against `render.render_full` on the card at
      S = 64, 128 (BARF) and 192 (GARF validation);
-  3. hold the flagship render kernel against `flagship_render_reference` at
-     the flagship width (fp32, bf16, fp32 with weights);
+  3. hold the bf16 linear's CUDA path (one tensor-core GEMM returning fp32)
+     against the CPU path's rounded-fp32 product, forward and gradients; hold
+     the flagship render kernel (K2) against `flagship_render_reference` at
+     the flagship width, fp32 and bf16, at S = 128, 32 and a ragged 100, with
+     ray counts that are no multiple of the kernel's ray packing (64 / S rays
+     a block), with and without the weights; then at hidden widths 48 and
+     100 (colour 24 and 50: padded to 16 inside), 512 (fp32 on 32-row tiles)
+     and 1024 (bf16 on 32-row tiles);
   4. run the serving entry point `render_views.main` end to end on a
      generated synthetic scene for the dense flagship config (fp32) and the
      north-star hierarchical config (bf16), check the PSNR is finite, that
@@ -18,11 +24,12 @@ Phases, each raising on failure:
      compositing kernel by its `torch.profiler` device time per call on
      inputs rotated past the L2 (`cold_copies`), the rest with CUDA events;
   6. hold the compositing backward kernel against `render_bwd_reference`;
-  7. hold the flagship train kernel against `flagship_train_grads_reference`
-     at the flagship width (1024 rays: fp32, bf16, fp32 with loss_scale and
-     weights; 8192 rays x 32 samples bf16, the north-star training shape):
-     rgb, geometry gradients, weights and every dW/db, and two launches
-     bitwise equal;
+  7. hold the flagship train kernel (K4) against
+     `flagship_train_grads_reference` at the flagship width (1024 x 128 fp32
+     and bf16; 1024 x 32 fp32 with loss_scale and weights; 8192 x 32 bf16, the
+     north-star training shape; 1023 x 32 and 333 x 100, fp32 and bf16; then
+     hidden 48 and 100, and 512 with bf16 on 32-row tiles): rgb, geometry
+     gradients, weights and every dW/db, and two launches bitwise equal;
   8. one train step, `train_step_fused` against `train_step`, from the same
      state, batch and generator seed (dense fp32, north-star bf16): the
      loss, every gradient handed to Adam, and the update;
@@ -30,10 +37,12 @@ Phases, each raising on failure:
      dense flagship at 32^2 (the logged train PSNR must rise by > 1 dB and
      end above 10 dB), the north-star config at 100^2 with the kernel
      launches counted, `--resume`, and `render_views` on the checkpoint;
+     then `run_barf` at hidden 100 (fused, bf16) and 512 (plain step, fp32),
+     each logging images through K2;
  10. time the train step (fused against plain) and the kernels alone at
      8192 rays (the compositing backward by its `torch.profiler` device
-     time per call on inputs rotated past the L2), and profile one fused step
-     of each config;
+     time per call on inputs rotated past the L2), profile one fused step
+     of each config, and time K4's weight packing (host and device) in bf16;
  11. hold the GARF render kernel (K6) against
      `garf_radiance_render_reference` for gauss, gabor and sarf, fp32 and
      bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a ragged 50;
@@ -120,6 +129,10 @@ TOL_FP32 = 1e-4
 # each layer's output (density and colour logits included) where the kernel
 # keeps them fp32, as the TPU kernel does; 2e-2 on values in [0, 1].
 TOL_BF16 = 2e-2
+# The bf16 linear on CUDA against the CPU path's product of the rounded
+# operands in fp32: the same products summed in another order, both outputs
+# rounded to bf16, so one bf16 ulp (2^-8 relative) apart at most; held by
+# relative norm under TOL_BF16.
 # K3: max abs error over the reference's max abs value (random cotangents;
 # the suffix sums are a scan here and a cumsum there).
 TOL_K3 = 1e-4
@@ -253,20 +266,55 @@ def phase_compositing(dev):
     return worst
 
 
+def check_bf16_linear(dev):
+    """`linear_apply` in bf16 on CUDA (one tensor-core GEMM returning fp32)
+    against the CPU path's product of the rounded operands in fp32, forward
+    and the gradients of x, W and b, at a flagship layer's shape."""
+    from nerf_experiments_tpu_torch.models import common
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    layer = common.linear_init(torch.Generator().manual_seed(22), 319, 256).to(dev)
+    x = torch.randn((8192, 319), generator=gen, device=dev).requires_grad_(True)
+    g = torch.randn((8192, 256), generator=gen, device=dev).bfloat16()
+    y = common.linear_apply(layer, x, torch.bfloat16)
+    got = (y, *torch.autograd.grad(y, (x, layer.w, layer.b), g))
+    # the CPU path's arithmetic, on the card
+    y = (x.bfloat16().float() @ layer.w.bfloat16().float() + layer.b).bfloat16()
+    want = (y, *torch.autograd.grad(y, (x, layer.w, layer.b), g))
+    errs = {n: rel_norm(a.float(), b.float()) for n, a, b in zip(("y", "dx", "dW", "db"),
+                                                                 got, want)}
+    log("bf16 linear on CUDA vs the rounded-fp32 product, rel norm "
+        + json.dumps(errs) + f", tol {TOL_BF16}")
+    require(got[0].dtype == torch.bfloat16, "bf16 linear: output not bf16")
+    for k, v in errs.items():
+        require(v <= TOL_BF16, f"bf16 linear {k} err {v} > {TOL_BF16}")
+
+
 def phase_flagship(dev):
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import sampling
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
-        flagship_render, flagship_render_reference)
+        flagship_render, flagship_render_reference, tile_rows)
 
+    check_bf16_linear(dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    origs, dirs = random_rays(N_RAYS, gen, dev)
     worst_abs_fp32 = 0.0
-    for s, bf16, with_w in ((128, False, False), (128, True, False), (32, False, True)):
-        cfg = flagship_cfg(bf16)
+    # S = 32 packs 2 rays a block, S = 100 takes one ray in two tiles (64 +
+    # 36 rows): the odd ray counts leave a block with fewer rays. Then other
+    # hidden widths: 48 and 100 (colour 24 and 50, padded to 16 inside), 512
+    # (fp32 on 32-row tiles) and 1024 (bf16 on 32-row tiles).
+    for n, s, bf16, with_w, hidden in (
+            (N_RAYS, 128, False, False, 256), (N_RAYS, 128, True, False, 256),
+            (N_RAYS - 1, 32, False, True, 256), (N_RAYS - 1, 32, True, False, 256),
+            (1001, 100, False, True, 256), (1001, 100, True, True, 256),
+            (257, 100, False, True, 48), (257, 32, True, True, 48),
+            (333, 32, False, False, 100), (333, 100, True, False, 100),
+            (1001, 100, False, True, 512), (1001, 32, True, False, 512),
+            (129, 100, True, True, 1024)):
+        origs, dirs = random_rays(n, gen, dev)
+        cfg = flagship_cfg(bf16, hidden_dim=hidden)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
-        ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant",
-                                            device=dev)
+        ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
         args = (params, cfg, origs, dirs, ts, te, 7.5, 2.5)
         with torch.no_grad():
             got = flagship_render(*args, return_weights=with_w)
@@ -276,8 +324,9 @@ def phase_flagship(dev):
         names = ("rgb", "opacity", "depth", "weights")[:len(got)]
         errs = {n: max_err(g, r) / (FAR if n == "depth" else 1.0)
                 for n, g, r in zip(names, got, ref)}
-        log(f"K2 flagship_render {N_RAYS}x{s} {'bf16' if bf16 else 'fp32'} max abs err "
-            + json.dumps(errs) + f" (depth / far), tol {tol}")
+        rows = tile_rows(cfg, hidden, hidden // 2)
+        log(f"K2 flagship_render {n}x{s} {'bf16' if bf16 else 'fp32'} hidden {hidden} "
+            f"({rows}-row tiles) max abs err " + json.dumps(errs) + f" (depth / far), tol {tol}")
         for k, v in errs.items():
             require(v <= tol, f"K2 S={s} bf16={bf16} {k} err {v} > {tol}")
             require(math.isfinite(v), f"K2 {k} not finite")
@@ -395,17 +444,29 @@ def phase_train_kernel(dev):
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import sampling
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
-        flagship_train_grads, flagship_train_grads_reference, train_workspace_bytes)
+        flagship_train_grads, flagship_train_grads_reference, tile_rows, train_workspace_bytes)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     worst_abs_fp32 = 0.0
-    for n, s, bf16, with_w, scale in ((1024, 128, False, False, 1.0),
-                                      (1024, 128, True, False, 1.0),
-                                      (1024, 32, False, True, 0.1),
-                                      (N_RAYS, 32, True, False, 1.0)):
+    # the flagship width, then hidden 48 and 100 (colour 24 and 50, padded to
+    # 16 on the tensor cores) and 512 (bf16 on 32-row tiles)
+    for n, s, bf16, with_w, scale, hidden in ((1024, 128, False, False, 1.0, 256),
+                                              (1024, 128, True, False, 1.0, 256),
+                                              (1024, 32, False, True, 0.1, 256),
+                                              (N_RAYS, 32, True, False, 1.0, 256),
+                                              (1023, 32, False, False, 1.0, 256),
+                                              (1023, 32, True, True, 1.0, 256),
+                                              (333, 100, False, True, 1.0, 256),
+                                              (333, 100, True, False, 0.5, 256),
+                                              (257, 32, True, True, 1.0, 48),
+                                              (333, 100, False, True, 1.0, 100),
+                                              (333, 100, True, False, 1.0, 100),
+                                              (255, 128, False, False, 1.0, 512),
+                                              (255, 100, True, True, 1.0, 512),
+                                              (255, 32, True, False, 1.0, 512)):
         origs, dirs = random_rays(n, gen, dev)
         targets = torch.rand((n, 3), generator=gen, device=dev)
-        cfg = flagship_cfg(bf16)
+        cfg = flagship_cfg(bf16, hidden_dim=hidden)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
         ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
         args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5, scale, with_w)
@@ -413,7 +474,8 @@ def phase_train_kernel(dev):
         again = flagship_train_grads(*args)
         ref = flagship_train_grads_reference(*args)
         torch.cuda.synchronize()
-        tag = f"{n}x{s} {'bf16' if bf16 else 'fp32'} loss_scale {scale}"
+        route = f"{tile_rows(cfg, hidden, hidden // 2, train=True)}-row tiles" if bf16 else "FMA"
+        tag = f"{n}x{s} {'bf16' if bf16 else 'fp32'} hidden {hidden} ({route}) loss_scale {scale}"
         flat = lambda out: [out[0], out[2], out[3], *out[1].values(), *out[4:]]
         require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
                 f"K4 {tag}: two launches differ")
@@ -426,7 +488,7 @@ def phase_train_kernel(dev):
         for name, g in got[1].items():
             errs[name] = rel_norm(g, ref[1][name])
         worst = max(errs, key=errs.get)
-        mb = train_workspace_bytes(cfg, n, s, 256, 128) / 2**20
+        mb = train_workspace_bytes(cfg, n, s, hidden, hidden // 2) / 2**20
         log(f"K4 flagship_train {tag}: bitwise equal over two launches; workspace "
             f"{mb:.0f} MiB; rel norm err rgb {errs['rgb']:.3e} d_origs "
             f"{errs['d_origs']:.3e} d_dirs {errs['d_dirs']:.3e} worst {worst} "
@@ -555,6 +617,21 @@ def phase_training(dev, workdir):
     require(psnrs[-1] > psnrs[0] + 1.0 and psnrs[-1] > 10.0, f"dense PSNR {psnrs}")
     require(launches_dense["flagship_train"] >= 300, "dense: K4 not on every step")
 
+    # other widths, each logging images through K2 from its first step: hidden
+    # 100 fused in bf16 (tiles padded to 16), hidden 512 on the plain step in
+    # fp32 (K2 on 32-row tiles)
+    for hidden, flags in ((100, ["--fused_kernel", "--bf16"]), (512, [])):
+        state, launches = counted(
+            ["--image_size", "32", "--batch_size", "1024", "--max_steps", "4",
+             "--samples_per_ray", "64", "--hidden_dim", str(hidden), "--device", str(dev),
+             "--out_dir", os.path.join(workdir, f"train_hidden{hidden}")] + flags)
+        log(f"train hidden {hidden} ({' '.join(flags) or 'plain step, fp32'}) 32^2: "
+            f"{state.step} steps, launches {launches}")
+        require(state.step == 4 and launches["flagship_render"] >= 1,
+                f"hidden {hidden}: no image logged through K2")
+        require(launches["flagship_train"] == (4 if flags else 0),
+                f"hidden {hidden}: K4 launched {launches['flagship_train']} times")
+
     # north-star hierarchical, bf16, at the serving scene's size
     out = os.path.join(workdir, "train_northstar")
     ns = ["--image_size", str(IMAGE_SIZE), "--batch_size", str(N_RAYS), "--seed", "7",
@@ -678,9 +755,51 @@ def phase_train_timing(dev):
         fused_step = barf_sys.make_train_step(cfg, fused=True)
         profile_step(lambda: fused_step(state, batch, torch.Generator(device=dev).manual_seed(14),
                                         7.5, 2.5, 0.0), f"fused train step {name}")
+        if cfg.radiance.compute_dtype is not None:
+            times[f"pack_{name}"] = time_packing(params.radiance, cfg.radiance, dev, name)
         del state
         torch.cuda.empty_cache()
     return times
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host time per call of `fn` (what it costs the CPU to issue its work),
+    the device left to catch up after the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def time_packing(params, cfg, dev, name: str):
+    """K4's weight packing for one train step (`packed_weights`, forward and
+    backward operands in one gather), host and device time a call, beside
+    packing each operand on its own by `pack_b` (the layout's definition)."""
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        _layer_parts, _layers, pack_b, packed_weights)
+
+    D, C = cfg.hidden_dim, cfg.hidden_dim // 2
+    last = 2 * cfg.n_hidden + 1
+
+    def each():
+        for i, (layer, (parts, out)) in enumerate(zip(_layers(params),
+                                                      _layer_parts(cfg, D, C))):
+            w = layer.w.detach()
+            n_fwd = D if i == last else out
+            pack_b(w[:, :n_fwd], parts, [n_fwd], True)
+            pack_b(w.t(), [out], parts, True)
+
+    gather = lambda: packed_weights(params, cfg, dev, backward=True)
+    h, d = host_ms(gather), device_ms(gather, calls=50)
+    h_each, d_each = host_ms(each), device_ms(each, calls=50)
+    log(f"weight packing {name} (bf16, forward and backward operands): one gather host "
+        f"{h:.4f} ms, device {d:.4f} ms a step; pack_b per operand host {h_each:.4f} ms, "
+        f"device {d_each:.4f} ms")
+    return h, d, h_each, d_each
 
 
 def plain_forward(params, cfg, origs, dirs, pw):
@@ -2012,17 +2131,21 @@ def phase_mip_timing(dev):
     return times
 
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
+# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds: HBM, fp32
+# on the CUDA cores, and the dense tensor-core rates of TF32 and bf16.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, rate: float = FP32_FLOP_PER_S):
     """(least ms the card could take, "bytes" or "operations"): the inputs
     read once and the outputs written once at the memory rate, against the
-    operations at the fp32 rate (every timed kernel below runs fp32)."""
+    operations at `rate` (the CUDA cores' fp32 rate unless the kernel runs its
+    products on the tensor cores)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2036,12 +2159,20 @@ def kernel_bounds():
     """The bound of every kernel at the shape its time was taken at (K1 / K3
     8192 x 64, K2 / K4 / K11 8192 x 128 and K6 8192 x 192 fp32, K5 4096 x
     192 fp32, K7 / K8 524,288 3-D points at L16 F2 T 2^16, K9 / K10
-    run_mip_nerf's three chains at 262,144 rows fp32). The operation counts
-    are those of the layers' multiply-adds (2 per weight a sample: forward;
-    6: forward and both backward products) or, for the memory-bound
-    kernels, a count per element from the source (K1 ~16 a sample, K3 ~30,
-    K7 6 d per level and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d +
-    2)))."""
+    run_mip_nerf's three chains at 262,144 rows fp32; K2 / K4 also bf16, and
+    K4 bf16 at 8192 x 32: the `_bf16` keys). The operation counts are those
+    of the layers' multiply-adds (2 per weight a sample: forward; 6: forward
+    and both backward products) or, for the memory-bound kernels, a count
+    per element from the source (K1 ~16 a sample, K3 ~30, K7 6 d per level
+    and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d + 2))). K2 and K11
+    (K2's kernel) run their products on the tensor cores: in fp32 as three
+    TF32 products each (3xTF32) at the TF32 rate, in bf16 at the bf16 rate.
+    K4 in bf16 at the bf16 rate; K4 in fp32 needs products exact to fp32
+    (3xTF32 flips ReLUs: `scripts/tf32_relu_flips.py`), so it is bounded by
+    the cheapest such split on the tensor cores: three bf16 parts a factor,
+    a = a0 + a1 + a2, and the six partial products a_i b_j with i + j <= 2
+    (those dropped are 2^-24 of the product), six products at the bf16 rate,
+    as fast as 3xTF32; whatever route the kernel takes (today FMA loops)."""
     from nerf_experiments_tpu_torch.models import garf, nerf_mlp
 
     f32 = 4
@@ -2051,8 +2182,12 @@ def kernel_bounds():
     flag = nerf_mlp.init(torch.Generator().manual_seed(0), flagship_cfg(False))
     macs = weight_count(flag)
     rays_io = f32 * N_RAYS * (6 + 2 * 128 + 5)
-    out["flagship_render"] = bound(rays_io, 2 * macs * N_RAYS * 128)
-    out["flagship_train"] = bound(rays_io, 6 * macs * N_RAYS * 128)
+    out["flagship_render"] = bound(rays_io, 3 * 2 * macs * N_RAYS * 128, TF32_FLOP_PER_S)
+    out["flagship_train"] = bound(rays_io, 6 * 6 * macs * N_RAYS * 128, BF16_FLOP_PER_S)
+    out["flagship_render_bf16"] = bound(rays_io, 2 * macs * N_RAYS * 128, BF16_FLOP_PER_S)
+    out["flagship_train_bf16"] = bound(rays_io, 6 * macs * N_RAYS * 128, BF16_FLOP_PER_S)
+    out["flagship_train_bf16_s32"] = bound(f32 * N_RAYS * (6 + 2 * 32 + 5),
+                                           6 * macs * N_RAYS * 32, BF16_FLOP_PER_S)
     rad = garf.radiance_init(torch.Generator().manual_seed(0), garf_cfg("gauss", False))
     gmacs = weight_count(rad)
     out["garf_train"] = bound(f32 * GARF_RAYS * (9 + 2 * 192), 6 * gmacs * GARF_RAYS * 192)
@@ -2075,7 +2210,8 @@ def kernel_bounds():
                                         + 2 * weights),
                                  6 * weight_count(mip) * MIP_ROWS)
     # K11: K2's work at 8192 x 128 (rays and offsets in, rgb out)
-    out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 2 * macs * N_RAYS * 128)
+    out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 3 * 2 * macs * N_RAYS * 128,
+                                     TF32_FLOP_PER_S)
     return out
 
 
@@ -2219,6 +2355,14 @@ def main() -> int:
     for k in kernels["kernels"]:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = library.get(k["name"])
+    # K2 / K4 in bf16 beside their fp32 numbers, against the bf16 tensor-core bound
+    bf16_times = {"flagship_render": {"": times["K2_S128_bf16"]},
+                  "flagship_train": {"": train_times["K4_S128_bf16"],
+                                     "_s32": train_times["K4_S32_bf16"]}}
+    for k in kernels["kernels"]:
+        for suffix, (ms, plain) in bf16_times.get(k["name"], {}).items():
+            k[f"ms_bf16{suffix}"], k[f"plain_ms_bf16{suffix}"] = ms, plain
+            k[f"bound_ms_bf16{suffix}"] = bounds[f"{k['name']}_bf16{suffix}"][0]
     idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
     require(not idle, f"kernels never launched on their main paths: {idle}")
     for k in kernels["kernels"]:

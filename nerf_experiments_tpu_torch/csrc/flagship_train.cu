@@ -10,32 +10,53 @@
 // sigmoid colour, middle-point compositing), then the MSE gradient, the
 // compositing backward and the full MLP backward.
 //
-// What bounds it on the H100: arithmetic (about 3x the forward's 0.66 M FMAs
-// per sample at the flagship width) and the activation workspace. The TPU
+// What bounds it on the H100: arithmetic, three times the forward's 658,944
+// multiply-adds a sample (forward, g W^T, A^T G): 4.15 TFLOP at 8192 x 128,
+// 4.19 ms at the bf16 tensor-core rate; then the activation workspace. The TPU
 // keeps a 1024-row tile's activations in ~24 MB of VMEM from forward through
-// backward; one flagship sample row stores ~2.8 K activations (11 KB in fp32)
-// and a Hopper block has at most 227 KB. So the work is split in two phases:
-//   * phase A, one block per ray (K2's structure, 32-row chunks): the forward
-//     writes every layer's output to a global workspace (bf16 when the compute
-//     type is bf16) and each ReLU layer's mask, taken from that stored value
-//     (so exact in bf16 too), as one 32-bit word per (chunk, column); warp 0
-//     composites with a shuffle scan and then, walking the chunks backwards,
-//     runs the compositing backward as a reverse scan with the suffix sum
-//     carried from the end of the ray; the chunks are then walked again and
-//     the row cotangents are carried back layer by layer (g <- (g W^T) * mask,
-//     with W^T passed transposed so the loads coalesce) and stored per layer;
-//     the encoding backward gives d_pos / d_dirs, summed per ray in a fixed
-//     order;
-//   * phase B (`train_common.cuh`, shared with the GARF train kernel): dW =
-//     A^T G and db = sum G for every layer, a tiled GEMM over the rows on the
-//     CUDA cores, split over the rows into fixed partials that a third kernel
-//     adds in a fixed order. No atomics: two launches give bitwise equal
-//     gradients.
-// With bf16, matmul operands (weights, activations, cotangents) are rounded to
-// bf16 and products accumulate in fp32 where the TPU kernel rounds (`cde`);
-// the bias gradients sum the fp32 cotangents.
-// This is the simple design: FMA loops on the CUDA cores. Tensor cores
-// (mma.sync / wgmma), TMA, and keeping activations on chip are later work.
+// backward; one flagship sample row stores 2,778 activations and 2,698
+// cotangents (16.3 KB a row in bf16) and a Hopper block has at most 227 KB. So
+// the work is split in two phases, and the compute type picks the route at
+// compile time.
+//
+// bf16, the tensor-core route (`flagship_train_kernel`):
+//   * phase A, a block of kR / S rays (S <= kR) or one ray, walking kR-row
+//     tiles (`flagship_common.cuh`; kR = 64, or 32 for layers too wide for a
+//     64-row tile; any hidden / colour width runs padded to 16 on the tensor
+//     cores, the workspace keeping the true widths): the forward runs on the
+//     tensor cores (`forward_tile`: mma.sync m16n8k16, weights streamed from L2
+//     through per-warp cp.async rings), writes every layer's output to the
+//     workspace in bf16 and each ReLU layer's mask, taken from the stored value
+//     (so exact), as one 32-bit word per (32-row part of the tile, column): the
+//     FMA kernel's words, kept so the backward reads kR / 32 words a column and
+//     not the activations; one warp a ray composites with a shuffle scan, and
+//     after the last tile runs the compositing backward as a reverse scan with the
+//     suffix sum carried from the end of the ray; the tiles are then walked
+//     again and the row cotangents go back layer by layer, g <- (g W^T) *
+//     mask, the same tile product with B = W^T packed by the wrapper, each
+//     stored fp32 to the workspace; the encoding backward gives d_pos /
+//     d_dirs, summed per ray in a fixed order;
+//   * phase B (`train_common.cuh`, `dw_tile_tc`): dW = A^T G and db = sum G
+//     for every layer, a tensor-core GEMM over the rows (A and G staged
+//     transposed into shared memory, since the rows are the reduction),
+//     split over the rows into fixed partials that a third kernel adds in a
+//     fixed order. No atomics: two launches give bitwise equal gradients.
+//   Matmul operands (weights, activations, cotangents) are bf16 and products
+//   accumulate in fp32, rounding where the TPU kernel rounds (`cde`); the bias
+//   gradients sum the fp32 cotangents, as the TPU kernel does, so the
+//   workspace keeps them fp32 (bf16 cotangents with db summed in phase A
+//   halve their bytes; one development trial of that made phase B slower,
+//   PERF.md section 7).
+//
+// fp32, the FMA route (`flagship_train_fma_kernel`, phase B `dw_tile`): one
+// block a ray in 32-row chunks on the CUDA cores, the design before the
+// tensor-core route, at any width whose block fits (D up to ~860). 3xTF32 (as
+// K2's fp32 route) was tried here and missed the fp32 tolerance: its products
+// carry ~2^-21 relative error against fp32's 2^-24, enough to flip the ReLU of
+// a few units whose pre-activation is within that of 0, and one flipped unit
+// moves the gradients of the first layers by ~1e-4 relative norm
+// (`scripts/tf32_relu_flips.py` shows it on the CPU). The route stays FMA
+// until a split with exact products (three TF32 or bf16 parts) replaces it.
 #include "train_common.cuh"
 
 namespace {
@@ -43,49 +64,58 @@ namespace {
 using namespace netpu;
 
 constexpr int kAux = 6;        // per-row compositing record: raw density, rgb, T, w
-constexpr int kGradRows = 96;  // threads holding a (row, coordinate) geometry partial
+constexpr int kComp = 16;      // per-ray state: carry, rgb, d_origs (3), d_dirs (3)
+constexpr int kGradRows = 96;  // FMA route: threads holding a (row, coordinate) partial
 
-struct Transposed {
-  const void* w[kMaxLayers];  // (out, in) row-major copies of the weights
+// ---- the fp32 route: FMA loops on the CUDA cores ----
+
+struct FmaLayers {
+  const float* w[kMaxLayers];   // (in, out) row-major
+  const float* b[kMaxLayers];   // (out,)
+  const float* wt[kMaxLayers];  // (out, in): the same weights transposed
 };
 
-// Per-row workspace layout. Activations (compute type), row width AW:
-//   [pos_enc P | dir_enc Q | seg-1 outputs L x D | seg-2 ReLU outputs (L-1) x D |
-//    hidden D | colour hidden C]
-// Cotangents of each layer's pre-activation (fp32), row width GW: layer l at
-// g(l), widths D for l < 2L-1, D + 1 for the last segment layer, C, 3.
-// ReLU masks, one 32-bit word per (chunk, column), bit r for the chunk's row
-// r, width MW per chunk: [seg-1 L x D | seg-2 (L-1) x D | colour hidden C].
-struct Layout {
-  int P, Q, D, C, L;
-  __host__ __device__ int h1(int i) const { return P + Q + i * D; }
-  __host__ __device__ int h2(int i) const { return P + Q + (L + i) * D; }
-  __host__ __device__ int hid() const { return P + Q + (2 * L - 1) * D; }
-  __host__ __device__ int c0() const { return P + Q + 2 * L * D; }
-  __host__ __device__ int act_width() const { return c0() + C; }
-  __host__ __device__ int g(int l) const {
-    return l <= 2 * L - 1 ? l * D : (l == 2 * L ? 2 * L * D + 1 : 2 * L * D + 1 + C);
+// out[r][j] = act(in1[r] . W[0:K1, j] + in2[r] . W[K1:K1+K2, j] + b[j]) for the
+// chunk's live rows. With `store`, columns j < n_store are also written to
+// store[r * sld + j] (the training kernel's activation workspace), and with
+// `mask_out` bit r of mask_out[j] records out[r][j] > 0 (its ReLU mask, one
+// word per column).
+__device__ void dense(const float* in1, int ld1, int K1, const float* in2, int ld2, int K2,
+                      const float* W, const float* bias, int n_out, float* out, int ldo,
+                      int rows, bool relu, float* store, size_t sld, int n_store,
+                      unsigned* mask_out) {
+  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    accumulate(acc, in1, ld1, K1, W, 0, n_out, j);
+    if (K2 > 0) accumulate(acc, in2, ld2, K2, W, K1, n_out, j);
+    const float bj = __ldg(bias + j);
+    unsigned bits = 0u;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) {
+        float z = acc[r] + bj;
+        if (relu) z = fmaxf(z, 0.f);
+        out[r * ldo + j] = z;
+        if (store != nullptr && j < n_store) store[r * sld + j] = z;
+        if (z > 0.f) bits |= 1u << r;
+      }
+    }
+    if (mask_out != nullptr) mask_out[j] = bits;
   }
-  __host__ __device__ int cot_width() const { return 2 * L * D + 1 + C + 3; }
-  __host__ __device__ int m_h1(int i) const { return i * D; }
-  __host__ __device__ int m_h2(int i) const { return (L + i) * D; }
-  __host__ __device__ int m_c0() const { return (2 * L - 1) * D; }
-  __host__ __device__ int mask_width() const { return (2 * L - 1) * D + C; }
-};
+}
 
 // Backward through one dense layer for the chunk's rows: t[r][k] =
 // sum_n g[r][n] * Wt[n][k] for k < K1 + K2, Wt the (n_in, K1 + K2) transposed
 // weight. Outputs k < K1 (the cotangent of a hidden layer's pre-activation)
-// are masked by the ReLU mask words mask1[k] when given, stored fp32 to glob1
-// and rounded to the compute type into dst1 (the next matmul's input);
-// outputs k >= K1 (an encoding's cotangent) are written or added, fp32, into
-// dst2.
-template <typename WT, bool kBf16>
-__device__ void dense_bwd(const float* g, int ldg, int n_in, const void* Wt_, int K1,
+// are masked by the ReLU mask words mask1[k] when given and stored to glob1
+// and to dst1 (the next matmul's input); outputs k >= K1 (an encoding's
+// cotangent) are written or added into dst2.
+__device__ void dense_bwd(const float* g, int ldg, int n_in, const float* Wt, int K1,
                           float* dst1, int ld1, float* glob1, size_t gld,
                           const unsigned* mask1, int K2, float* dst2, int ld2, bool add2,
                           int rows) {
-  const WT* Wt = static_cast<const WT*>(Wt_);
   const int K = K1 + K2;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     float acc[kRows];
@@ -99,7 +129,7 @@ __device__ void dense_bwd(const float* g, int ldg, int n_in, const void* Wt_, in
         if (r < rows) {
           const float v = (bits >> r) & 1u ? acc[r] : 0.f;
           glob1[r * gld + k] = v;
-          dst1[r * ld1 + k] = cde<kBf16>(v);
+          dst1[r * ld1 + k] = v;
         }
       }
     } else {
@@ -114,20 +144,21 @@ __device__ void dense_bwd(const float* g, int ldg, int n_in, const void* Wt_, in
   }
 }
 
-// Two blocks per SM (the shared memory allows two): without the bound ptxas
+// The fp32 route, one block a ray on the CUDA cores. Two blocks per SM (the
+// shared memory allows two at the flagship width): without the bound ptxas
 // takes ~200 registers and one block fits, which measured 1.5x slower.
-template <typename WT, bool kBf16, typename AT>
 __global__ void __launch_bounds__(kThreads, 2)
-flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__ dirs,
+flagship_train_fma_kernel(const float* __restrict__ origs, const float* __restrict__ dirs,
                       const float* __restrict__ t_start, const float* __restrict__ t_end,
-                      const float* __restrict__ targets, Layers layers, Transposed wt,
+                      const float* __restrict__ targets, FmaLayers layers,
                       int S, int n_hidden, int D, int C, int Lp, int Ld, float scale,
                       float alpha_pos, float alpha_dir, float density_scale, float grad_scale,
-                      AT* act, float* cot, float* aux, unsigned* masks,
+                      float* act, float* cot, float* aux, unsigned* masks,
                       float* __restrict__ rgb_out,
                       float* __restrict__ d_origs, float* __restrict__ d_dirs,
                       float* __restrict__ weights_out) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  float* smem = reinterpret_cast<float*>(smem_bytes);
   const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
   const int L = n_hidden + 1;  // layers per segment
   const Layout lay{P, Q, D, C, L};
@@ -161,7 +192,7 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
   for (int base = 0; base < S; base += kRows) {
     const int rows = min(kRows, S - base);
     const size_t row0 = ray_row + base;
-    AT* a0 = act + row0 * AW;
+    float* a0 = act + row0 * AW;
     unsigned* m0 = masks + (static_cast<size_t>(ray) * n_chunks + base / kRows) * MW;
     for (int r = tid; r < rows; r += blockDim.x) {
       const float ts = t_start[row0 + r], te = t_end[row0 + r];
@@ -172,46 +203,46 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
     for (int idx = tid; idx < rows * 3; idx += blockDim.x) {
       const int r = idx / 3, c = idx % 3;
       const float p = __fadd_rn(o[c], __fmul_rn(tq[r], d[c]));
-      encode<kBf16>(p, c, Lp, mask, scale, enc_p + r * ldp);
-      encode<kBf16>(d[c], c, Ld, mask + Lp, scale, enc_d + r * ldq);
+      encode<false>(p, c, Lp, mask, scale, enc_p + r * ldp);
+      encode<false>(d[c], c, Ld, mask + Lp, scale, enc_d + r * ldq);
     }
     __syncthreads();
     for (int idx = tid; idx < rows * P; idx += blockDim.x)
-      store_act(a0 + (idx / P) * AW + idx % P, enc_p[(idx / P) * ldp + idx % P]);
+      a0[(idx / P) * AW + idx % P] = enc_p[(idx / P) * ldp + idx % P];
     for (int idx = tid; idx < rows * Q; idx += blockDim.x)
-      store_act(a0 + (idx / Q) * AW + P + idx % Q, enc_d[(idx / Q) * ldq + idx % Q]);
+      a0[(idx / Q) * AW + P + idx % Q] = enc_d[(idx / Q) * ldq + idx % Q];
 
     float* cur = buf0;
     float* nxt = buf1;
-    dense<WT, kBf16>(enc_p, ldp, P, nullptr, 0, 0, layers.w[0], layers.b[0], D, cur, lda,
-                     rows, true, D, a0 + lay.h1(0), AW, D, m0 + lay.m_h1(0));
+    dense(enc_p, ldp, P, nullptr, 0, 0, layers.w[0], layers.b[0], D, cur, lda, rows, true,
+          a0 + lay.h1(0), AW, D, m0 + lay.m_h1(0));
     __syncthreads();
     for (int i = 1; i < L; ++i) {
-      dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[i], layers.b[i], D, nxt, lda,
-                       rows, true, D, a0 + lay.h1(i), AW, D, m0 + lay.m_h1(i));
+      dense(cur, lda, D, nullptr, 0, 0, layers.w[i], layers.b[i], D, nxt, lda, rows, true,
+            a0 + lay.h1(i), AW, D, m0 + lay.m_h1(i));
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
-    dense<WT, kBf16>(cur, lda, D, enc_p, ldp, P, layers.w[L], layers.b[L], D, nxt, lda, rows,
-                     true, D, a0 + lay.h2(0), AW, D, m0 + lay.m_h2(0));
+    dense(cur, lda, D, enc_p, ldp, P, layers.w[L], layers.b[L], D, nxt, lda, rows, true,
+          a0 + lay.h2(0), AW, D, m0 + lay.m_h2(0));
     __syncthreads();
     { float* t = cur; cur = nxt; nxt = t; }
     for (int i = 1; i < L - 1; ++i) {
-      dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[L + i], layers.b[L + i], D, nxt,
-                       lda, rows, true, D, a0 + lay.h2(i), AW, D, m0 + lay.m_h2(i));
+      dense(cur, lda, D, nullptr, 0, 0, layers.w[L + i], layers.b[L + i], D, nxt, lda, rows,
+            true, a0 + lay.h2(i), AW, D, m0 + lay.m_h2(i));
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
-    dense<WT, kBf16>(cur, lda, D, nullptr, 0, 0, layers.w[2 * L - 1], layers.b[2 * L - 1],
-                     D + 1, nxt, lda, rows, false, D, a0 + lay.hid(), AW, D, nullptr);
+    dense(cur, lda, D, nullptr, 0, 0, layers.w[2 * L - 1], layers.b[2 * L - 1], D + 1, nxt,
+          lda, rows, false, a0 + lay.hid(), AW, D, nullptr);
     __syncthreads();
     { float* t = cur; cur = nxt; nxt = t; }
-    // cur[r][0:D] = hidden features, cur[r][D] = raw density (fp32)
-    dense<WT, kBf16>(cur, lda, D, enc_d, ldq, Q, layers.w[2 * L], layers.b[2 * L], C, nxt,
-                     lda, rows, true, C, a0 + lay.c0(), AW, C, m0 + lay.m_c0());
+    // cur[r][0:D] = hidden features, cur[r][D] = raw density
+    dense(cur, lda, D, enc_d, ldq, Q, layers.w[2 * L], layers.b[2 * L], C, nxt, lda, rows,
+          true, a0 + lay.c0(), AW, C, m0 + lay.m_c0());
     __syncthreads();
-    dense<WT, kBf16>(nxt, lda, C, nullptr, 0, 0, layers.w[2 * L + 1], layers.b[2 * L + 1], 3,
-                     logits, 3, rows, false, 0, static_cast<AT*>(nullptr), 0, 0, nullptr);
+    dense(nxt, lda, C, nullptr, 0, 0, layers.w[2 * L + 1], layers.b[2 * L + 1], 3, logits, 3,
+          rows, false, nullptr, 0, 0, nullptr);
     __syncthreads();
 
     if (warp == 0) {
@@ -303,47 +334,45 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
     for (int r = tid; r < rows; r += blockDim.x)
       tq[r] = (t_start[row0 + r] + t_end[row0 + r]) / 2.f;
     for (int idx = tid; idx < rows * 3; idx += blockDim.x)
-      buf0[(idx / 3) * lda + idx % 3] =
-          cde<kBf16>(cot0[(idx / 3) * GW + lay.g(2 * L + 1) + idx % 3]);
+      buf0[(idx / 3) * lda + idx % 3] = cot0[(idx / 3) * GW + lay.g(2 * L + 1) + idx % 3];
     __syncthreads();
     // colour head, C -> 3: masked by the colour hidden layer's ReLU
-    dense_bwd<WT, kBf16>(buf0, lda, 3, wt.w[2 * L + 1], C, buf1, lda, cot0 + lay.g(2 * L), GW,
-                         m0 + lay.m_c0(), 0, nullptr, 0, false, rows);
+    dense_bwd(buf0, lda, 3, layers.wt[2 * L + 1], C, buf1, lda, cot0 + lay.g(2 * L), GW,
+              m0 + lay.m_c0(), 0, nullptr, 0, false, rows);
     __syncthreads();
     // colour head, [hidden | dir_enc] -> C: the hidden part has no ReLU
-    dense_bwd<WT, kBf16>(buf1, lda, C, wt.w[2 * L], D, buf0, lda, cot0 + lay.g(2 * L - 1), GW,
-                         nullptr, Q, enc_d, ldq, false, rows);
+    dense_bwd(buf1, lda, C, layers.wt[2 * L], D, buf0, lda, cot0 + lay.g(2 * L - 1), GW,
+              nullptr, Q, enc_d, ldq, false, rows);
     // the density column of the last segment layer, from the compositing pass
     for (int r = tid; r < rows; r += blockDim.x)
-      buf0[r * lda + D] = cde<kBf16>(cot0[r * GW + lay.g(2 * L - 1) + D]);
+      buf0[r * lda + D] = cot0[r * GW + lay.g(2 * L - 1) + D];
     __syncthreads();
     // last segment layer, D -> D + 1
-    dense_bwd<WT, kBf16>(buf0, lda, D + 1, wt.w[2 * L - 1], D, buf1, lda,
-                         cot0 + lay.g(2 * L - 2), GW, m0 + lay.m_h2(L - 2), 0, nullptr, 0,
-                         false, rows);
+    dense_bwd(buf0, lda, D + 1, layers.wt[2 * L - 1], D, buf1, lda, cot0 + lay.g(2 * L - 2),
+              GW, m0 + lay.m_h2(L - 2), 0, nullptr, 0, false, rows);
     __syncthreads();
     float* cur = buf1;
     float* nxt = buf0;
     for (int l = 2 * L - 2; l >= L + 1; --l) {
-      dense_bwd<WT, kBf16>(cur, lda, D, wt.w[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
-                           m0 + lay.m_h2(l - 1 - L), 0, nullptr, 0, false, rows);
+      dense_bwd(cur, lda, D, layers.wt[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
+                m0 + lay.m_h2(l - 1 - L), 0, nullptr, 0, false, rows);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
     // first layer of segment 2, [z | pos_enc] -> D: the inter-segment ReLU
-    dense_bwd<WT, kBf16>(cur, lda, D, wt.w[L], D, nxt, lda, cot0 + lay.g(L - 1), GW,
-                         m0 + lay.m_h1(L - 1), P, enc_p, ldp, false, rows);
+    dense_bwd(cur, lda, D, layers.wt[L], D, nxt, lda, cot0 + lay.g(L - 1), GW,
+              m0 + lay.m_h1(L - 1), P, enc_p, ldp, false, rows);
     __syncthreads();
     { float* t = cur; cur = nxt; nxt = t; }
     for (int l = L - 1; l >= 1; --l) {
-      dense_bwd<WT, kBf16>(cur, lda, D, wt.w[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
-                           m0 + lay.m_h1(l - 1), 0, nullptr, 0, false, rows);
+      dense_bwd(cur, lda, D, layers.wt[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
+                m0 + lay.m_h1(l - 1), 0, nullptr, 0, false, rows);
       __syncthreads();
       float* t = cur; cur = nxt; nxt = t;
     }
     // first layer, pos_enc -> D
-    dense_bwd<WT, kBf16>(cur, lda, D, wt.w[0], 0, nullptr, 0, nullptr, 0, nullptr, P, enc_p,
-                         ldp, true, rows);
+    dense_bwd(cur, lda, D, layers.wt[0], 0, nullptr, 0, nullptr, 0, nullptr, P, enc_p, ldp,
+              true, rows);
     __syncthreads();
     // encoding backward: d_origs = sum_s d_pos, d_dirs = sum_s (t_q d_pos + d_dir)
     if (tid < rows * 3) {
@@ -372,14 +401,304 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
   }
 }
 
+// ---- the bf16 route: the tensor-core tile ----
+
+// fp32 arrays after the compute-type tiles, in this order
+__host__ __device__ int stg_ld(int D, int C) { return imax(round16(D), round16(C)) + 4; }
+__host__ __device__ size_t train_floats(int P, int Q, int D, int C, int Lp, int Ld, int kR) {
+  return static_cast<size_t>(kR) * (6 + kComp + round16(P) + round16(Q) + 6 + stg_ld(D, C)) +
+         round4(Lp + Ld);
+}
+
+// The bf16 route, kR-row tiles (64, or 32 for wide layers; see the file note).
+template <int kR>
+__global__ void __launch_bounds__(kThreads, 1)
+flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__ dirs,
+                      const float* __restrict__ t_start, const float* __restrict__ t_end,
+                      const float* __restrict__ targets, TileWeights wts, int n_rays, int S,
+                      int n_hidden, int D, int C, int Lp, int Ld, float scale, float alpha_pos,
+                      float alpha_dir, float density_scale, float grad_scale,
+                      __nv_bfloat16* act, float* cot, float* aux, unsigned* masks,
+                      float* __restrict__ rgb_out, float* __restrict__ d_origs,
+                      float* __restrict__ d_dirs, float* __restrict__ weights_out) {
+  using M = Mma<true>;
+  using ET = __nv_bfloat16;
+  constexpr int kH = kR / 32;  // 32-row mask halves of a tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
+  const int L = n_hidden + 1;  // layers per segment
+  const Layout lay{P, Q, D, C, L};
+  const size_t AW = lay.act_width(), GW = lay.cot_width();
+  const int MW = lay.mask_width();
+  const int Dp = round16(D), Cp = round16(C);  // the widths on the tensor cores
+  const int ldgp = round16(P), ldgq = round16(Q);
+  const TileSmem<true> tl(P, Q, D, C, kR);
+  float* f = reinterpret_cast<float*>(smem + tl.f32_offset());
+  float* dens = f;                   // kR
+  float* logits = dens + kR;         // kR x 3
+  float* tq = logits + 3 * kR;       // kR
+  float* dist = tq + kR;             // kR
+  float* comp = dist + kR;           // kR x kComp
+  float* gencp = comp + kR * kComp;  // kR x ldgp: pos_enc cotangent
+  float* gencd = gencp + kR * ldgp;  // kR x ldgq: dir_enc cotangent
+  float* geo = gencd + kR * ldgq;    // kR x 6: d_pos, t d_pos + d_dir
+  float* stg = geo + kR * 6;         // kR x sld: a layer's fp32 cotangent
+  const int sld = stg_ld(D, C);
+  float* mask = stg + kR * sld;      // Lp + Ld
+  const TileBufs<true> s(tl, smem, dens, logits);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rpb = rays_per_block(S, kR);
+  const int ray0 = blockIdx.x * rpb;
+  const int nr = min(rpb, n_rays - ray0);
+  const int block_rows = nr * S;
+  const size_t row_base = static_cast<size_t>(ray0) * S;
+  unsigned* mblock = masks + static_cast<size_t>(blockIdx.x) * tiles_per_block(S, kR) * kH * MW;
+
+  s.zero();
+  barf_window(mask, Lp, Ld, alpha_pos, alpha_dir);
+  for (int i = tid; i < kR * kComp; i += blockDim.x) comp[i] = 0.f;
+
+  // ---- forward, tile by tile; one warp composites each ray ----
+  for (int tb = 0; tb < block_rows; tb += kR) {
+    const int rows = min(kR, block_rows - tb);
+    const size_t row0 = row_base + tb;
+    ET* a0 = act + row0 * AW;
+    for (int r = tid; r < rows; r += blockDim.x) {
+      const float ts = t_start[row0 + r], te = t_end[row0 + r];
+      tq[r] = (ts + te) / 2.f;
+      dist[r] = te - ts;
+    }
+    __syncthreads();  // also publishes the zeroed tiles, mask and comp on the first tile
+    for (int idx = tid; idx < rows * 3; idx += blockDim.x) {
+      const int r = idx / 3, c = idx % 3;
+      const int ray = ray0 + (tb + r) / S;
+      const float o = __ldg(origs + ray * 3 + c), d = __ldg(dirs + ray * 3 + c);
+      const float p = __fadd_rn(o, __fmul_rn(tq[r], d));
+      encode<true>(p, c, Lp, mask, scale, s.encp + r * s.ldp);
+      encode<true>(d, c, Ld, mask + Lp, scale, s.encd + r * s.ldq);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < rows * P; idx += blockDim.x)
+      a0[(idx / P) * AW + idx % P] = s.encp[(idx / P) * s.ldp + idx % P];
+    for (int idx = tid; idx < rows * Q; idx += blockDim.x)
+      a0[(idx / Q) * AW + P + idx % Q] = s.encd[(idx / Q) * s.ldq + idx % Q];
+    const TileStore<ET> st{a0, AW, mblock + static_cast<size_t>(tb / kR) * kH * MW, MW};
+    forward_tile<true, kR>(lay, wts, s, rows, st);
+
+    const int j_first = tb / S, j_last = (tb + rows - 1) / S;
+    for (int j = j_first + warp; j <= j_last; j += kWarps) {
+      const int lo = max(tb, j * S) - tb, hi = min(tb + rows, (j + 1) * S) - tb;
+      float* sj = comp + j * kComp;
+      float carry = sj[0], ar = 0.f, ag = 0.f, ab = 0.f;
+      for (int c0 = lo; c0 < hi; c0 += 32) {
+        const int r = c0 + lane;
+        const bool live = r < hi;
+        float raw = 0.f, blk = 0.f, k0 = 0.f, k1 = 0.f, k2 = 0.f;
+        if (live) {
+          raw = dens[r];
+          blk = -softplus8(raw) * dist[r] * density_scale;
+          k0 = 1.f / (1.f + expf(-logits[r * 3 + 0]));
+          k1 = 1.f / (1.f + expf(-logits[r * 3 + 1]));
+          k2 = 1.f / (1.f + expf(-logits[r * 3 + 2]));
+        }
+        const float incl = warp_scan(blk, lane);
+        float excl = __shfl_up_sync(kFull, incl, 1);
+        if (lane == 0) excl = 0.f;
+        const float T = expf(carry + excl);
+        const float w = T * (1.f - expf(blk));
+        if (live) {
+          ar += w * k0;
+          ag += w * k1;
+          ab += w * k2;
+          float* x = aux + (row0 + r) * kAux;
+          x[0] = raw; x[1] = k0; x[2] = k1; x[3] = k2; x[4] = T; x[5] = w;
+          if (weights_out) weights_out[row0 + r] = w;
+        }
+        carry += __shfl_sync(kFull, incl, 31);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        ar += __shfl_xor_sync(kFull, ar, off);
+        ag += __shfl_xor_sync(kFull, ag, off);
+        ab += __shfl_xor_sync(kFull, ab, off);
+      }
+      if (lane == 0) {
+        sj[0] = carry;
+        sj[1] += ar;
+        sj[2] += ag;
+        sj[3] += ab;
+        if (tb + hi == (j + 1) * S)
+          for (int k = 0; k < 3; ++k) rgb_out[(ray0 + j) * 3 + k] = sj[1 + k];
+      }
+    }
+    __syncthreads();  // the next tile overwrites tq, dist, dens, logits and the tiles
+  }
+
+  // ---- loss gradient and compositing backward, one warp a ray ----
+  for (int j = warp; j < nr; j += kWarps) {
+    const int ray = ray0 + j;
+    const size_t ray_row = static_cast<size_t>(ray) * S;
+    const float g0 = grad_scale * (comp[j * kComp + 1] - __ldg(targets + ray * 3 + 0));
+    const float g1 = grad_scale * (comp[j * kComp + 2] - __ldg(targets + ray * 3 + 1));
+    const float g2 = grad_scale * (comp[j * kComp + 3] - __ldg(targets + ray * 3 + 2));
+    float tail = 0.f;  // sum of g_w * w over the samples after this chunk
+    for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
+      const int i = base + lane;
+      const bool live = i < S;
+      const size_t row = ray_row + i;
+      float raw = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, T = 0.f, w = 0.f, dt = 0.f;
+      if (live) {
+        const float* x = aux + row * kAux;
+        raw = x[0]; c0 = x[1]; c1 = x[2]; c2 = x[3]; T = x[4]; w = x[5];
+        dt = t_end[row] - t_start[row];
+      }
+      const float gw = g0 * c0 + g1 * c1 + g2 * c2;  // dL/dw of this sample
+      float sfx = gw * w;                           // reverse inclusive scan
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_down_sync(kFull, sfx, off);
+        if (lane + off < 32) sfx += y;
+      }
+      float after = __shfl_down_sync(kFull, sfx, 1);
+      if (lane == 31) after = 0.f;
+      if (live) {
+        const float blk = -softplus8(raw) * dt * density_scale;
+        const float d_blk = -gw * T * expf(blk) + (tail + after);
+        const float d_sigma = d_blk * (-dt * density_scale);
+        const float sp = raw > 8.f ? 1.f : 1.f / (1.f + expf(-raw));
+        float* g = cot + row * GW;
+        g[lay.g(2 * L - 1) + D] = d_sigma * sp;
+        g[lay.g(2 * L + 1) + 0] = g0 * w * c0 * (1.f - c0);
+        g[lay.g(2 * L + 1) + 1] = g1 * w * c1 * (1.f - c1);
+        g[lay.g(2 * L + 1) + 2] = g2 * w * c2 * (1.f - c2);
+      }
+      tail += __shfl_sync(kFull, sfx, 0);
+    }
+  }
+  __syncthreads();  // the seeded cotangents are visible to the block
+
+  // ---- MLP backward, tile by tile: g <- (g W^T) * mask on the tensor cores ----
+  const int sd = Dp / M::kK;
+  for (int tb = 0; tb < block_rows; tb += kR) {
+    const int rows = min(kR, block_rows - tb);
+    const size_t row0 = row_base + tb;
+    float* cot0 = cot + row0 * GW;
+    const unsigned* mt = mblock + static_cast<size_t>(tb / kR) * kH * MW;
+    // part 1 of width w1 (D, C or 0) padded to 16; part 2 an encoding's k2 columns
+    auto epi = [&](int w1, ET* out, const unsigned* m, float* enc, int eld, int k2, bool add) {
+      return BwdEpi<true>{round16(w1), w1, out, s.ldb, w1 > 0 ? stg : nullptr, sld, m, MW,
+                          enc, eld, k2, add, rows};
+    };
+    // after a product's barrier: its fp32 cotangent (width k1) to the
+    // workspace columns of layer l, then a barrier before stg is written again
+    auto store_cot = [&](int l, int k1) {
+      copy_rows(cot0 + lay.g(l), GW, stg, sld, k1, rows);
+      __syncthreads();
+    };
+    for (int r = tid; r < rows; r += blockDim.x)
+      tq[r] = (t_start[row0 + r] + t_end[row0 + r]) / 2.f;
+    // the logits' cotangent, K zero-padded to 16
+    for (int idx = tid; idx < kR * 16; idx += blockDim.x) {
+      const int r = idx >> 4, c = idx & 15;
+      const float v = c < 3 && r < rows ? cot0[r * GW + lay.g(2 * L + 1) + c] : 0.f;
+      s.buf0[r * s.ldb + c] = __float2bfloat16(v);
+    }
+    __syncthreads();
+    // colour head, C -> 3: masked by the colour hidden layer's ReLU
+    tile_gemm<true, kR>(s.buf0, s.ldb, 16 / M::kK, nullptr, 0, 0, wts.bwd[2 * L + 1], s.ring,
+                        Cp / 8, epi(C, s.buf1, mt + lay.m_c0(), nullptr, 0, 0, false));
+    __syncthreads();
+    store_cot(2 * L, C);
+    // colour head, [hidden | dir_enc] -> C: the hidden part has no ReLU
+    tile_gemm<true, kR>(s.buf1, s.ldb, Cp / M::kK, nullptr, 0, 0, wts.bwd[2 * L], s.ring,
+                        (Dp + ldgq) / 8, epi(D, s.buf0, nullptr, gencd, ldgq, Q, false));
+    __syncthreads();  // buf0's padding columns [D, Dp) are written by that epilogue
+    // the density column's cotangent from the compositing pass at column D,
+    // zeros up to the last segment layer's padded K, round16(D + 1)
+    const int kd = round16(D + 1) - D;
+    for (int idx = tid; idx < kR * kd; idx += blockDim.x) {
+      const int r = idx / kd, c = idx % kd;
+      const float v = c == 0 && r < rows ? cot0[r * GW + lay.g(2 * L - 1) + D] : 0.f;
+      s.buf0[r * s.ldb + D + c] = __float2bfloat16(v);
+    }
+    store_cot(2 * L - 1, D);
+    // last segment layer, D -> D + 1
+    tile_gemm<true, kR>(s.buf0, s.ldb, round16(D + 1) / M::kK, nullptr, 0, 0,
+                        wts.bwd[2 * L - 1], s.ring, Dp / 8,
+                        epi(D, s.buf1, mt + lay.m_h2(L - 2), nullptr, 0, 0, false));
+    __syncthreads();
+    store_cot(2 * L - 2, D);
+    ET* cur = s.buf1;
+    ET* nxt = s.buf0;
+    for (int l = 2 * L - 2; l >= L + 1; --l) {
+      tile_gemm<true, kR>(cur, s.ldb, sd, nullptr, 0, 0, wts.bwd[l], s.ring, Dp / 8,
+                          epi(D, nxt, mt + lay.m_h2(l - 1 - L), nullptr, 0, 0, false));
+      __syncthreads();
+      store_cot(l - 1, D);
+      ET* t = cur; cur = nxt; nxt = t;
+    }
+    // first layer of segment 2, [z | pos_enc] -> D: the inter-segment ReLU
+    tile_gemm<true, kR>(cur, s.ldb, sd, nullptr, 0, 0, wts.bwd[L], s.ring, (Dp + ldgp) / 8,
+                        epi(D, nxt, mt + lay.m_h1(L - 1), gencp, ldgp, P, false));
+    __syncthreads();
+    store_cot(L - 1, D);
+    { ET* t = cur; cur = nxt; nxt = t; }
+    for (int l = L - 1; l >= 1; --l) {
+      tile_gemm<true, kR>(cur, s.ldb, sd, nullptr, 0, 0, wts.bwd[l], s.ring, Dp / 8,
+                          epi(D, nxt, mt + lay.m_h1(l - 1), nullptr, 0, 0, false));
+      __syncthreads();
+      store_cot(l - 1, D);
+      ET* t = cur; cur = nxt; nxt = t;
+    }
+    // first layer, pos_enc -> D
+    tile_gemm<true, kR>(cur, s.ldb, sd, nullptr, 0, 0, wts.bwd[0], s.ring, ldgp / 8,
+                        epi(0, nxt, nullptr, gencp, ldgp, P, true));
+    __syncthreads();
+    // encoding backward per (row, coordinate): d_pos and t_q d_pos + d_dir
+    if (tid < rows * 3) {
+      const int r = tid / 3, c = tid % 3;
+      const int ray = ray0 + (tb + r) / S;
+      const float o = __ldg(origs + ray * 3 + c), d = __ldg(dirs + ray * 3 + c);
+      const float p = __fadd_rn(o, __fmul_rn(tq[r], d));
+      const float dp = encode_bwd(p, c, Lp, mask, scale, gencp + r * ldgp);
+      const float dd = encode_bwd(d, c, Ld, mask + Lp, scale, gencd + r * ldgq);
+      geo[r * 6 + c] = dp;
+      geo[r * 6 + 3 + c] = tq[r] * dp + dd;
+    }
+    __syncthreads();
+    // per-ray sums over the tile's rows, in row order
+    const int j_first = tb / S, j_last = (tb + rows - 1) / S;
+    for (int idx = tid; idx < (j_last - j_first + 1) * 6; idx += blockDim.x) {
+      const int j = j_first + idx / 6, q = idx % 6;
+      const int lo = max(tb, j * S) - tb, hi = min(tb + rows, (j + 1) * S) - tb;
+      float sum = 0.f;
+      for (int r = lo; r < hi; ++r) sum += geo[r * 6 + q];
+      comp[j * kComp + 4 + q] += sum;
+    }
+    __syncthreads();  // the next tile overwrites tq, geo and the tiles
+  }
+  for (int idx = tid; idx < nr * 6; idx += blockDim.x) {
+    const int j = idx / 6, q = idx % 6;
+    float* dst = q < 3 ? d_origs : d_dirs;
+    dst[(ray0 + j) * 3 + q % 3] = comp[j * kComp + 4 + q];
+  }
+}
+
 // ---- phase B: dW = A^T G, db = sum_rows G (train_common.cuh) ----
 
-template <typename AT, bool kBf16>
 __global__ void __launch_bounds__(256)
-dw_partial_kernel(const AT* __restrict__ act, const float* __restrict__ cot, GemmPlan plan,
-                  float* __restrict__ part) {
+dw_partial_kernel(const __nv_bfloat16* __restrict__ act, const float* __restrict__ cot,
+                  GemmPlan plan, float* __restrict__ part) {
+  __shared__ __align__(16) DwTcSmem sm;
+  dw_tile_stored_tc(act, cot, plan, DwTile(plan), sm, part);
+}
+
+__global__ void __launch_bounds__(256)
+dw_partial_fma_kernel(const float* __restrict__ act, const float* __restrict__ cot,
+                      GemmPlan plan, float* __restrict__ part) {
   __shared__ __align__(16) DwSmem sm;
-  dw_tile_stored<kBf16>(act, cot, plan, DwTile(plan), sm, part);
+  dw_tile_stored<false>(act, cot, plan, DwTile(plan), sm, part);
 }
 
 GemmPlan make_plan(const Layout& lay, long long rows, int splits) {
@@ -404,35 +723,72 @@ GemmPlan make_plan(const Layout& lay, long long rows, int splits) {
   return plan;
 }
 
-template <typename WT, bool kBf16, typename AT>
-cudaError_t launch(const float* origs, const float* dirs, const float* t_start,
-                   const float* t_end, const float* targets, const Layers& layers,
-                   const Transposed& wt, int n_rays, int S, int n_hidden, int D, int C, int Lp,
-                   int Ld, float scale, float alpha_pos, float alpha_dir, float density_scale,
-                   float grad_scale, void* act, float* cot, float* aux, unsigned* masks,
-                   float* part, int splits, float* grads, float* rgb_out, float* d_origs,
-                   float* d_dirs, float* weights_out, cudaStream_t stream) {
+template <int kR>
+cudaError_t launch_tc(const float* origs, const float* dirs, const float* t_start,
+                      const float* t_end, const float* targets, const TileWeights& wts,
+                      int n_rays, int S, int n_hidden, int D, int C, int Lp, int Ld, float scale,
+                      float alpha_pos, float alpha_dir, float density_scale, float grad_scale,
+                      void* act, float* cot, float* aux, unsigned* masks, float* part,
+                      int splits, float* grads, float* rgb_out, float* d_origs, float* d_dirs,
+                      float* weights_out, cudaStream_t stream) {
+  const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
+  const Layout lay{P, Q, D, C, n_hidden + 1};
+  const size_t bytes = TileSmem<true>(P, Q, D, C, kR).f32_offset() +
+                       train_floats(P, Q, D, C, Lp, Ld, kR) * sizeof(float);
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto kernel = flagship_train_kernel<kR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int rpb = rays_per_block(S, kR);
+  const unsigned blocks = static_cast<unsigned>((n_rays + rpb - 1) / rpb);
+  auto* a = static_cast<__nv_bfloat16*>(act);
+  kernel<<<blocks, kThreads, bytes, stream>>>(
+      origs, dirs, t_start, t_end, targets, wts, n_rays, S, n_hidden, D, C, Lp, Ld, scale,
+      alpha_pos, alpha_dir, density_scale, grad_scale, a, cot, aux, masks, rgb_out, d_origs,
+      d_dirs, weights_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const GemmPlan plan = make_plan(lay, static_cast<long long>(n_rays) * S, splits);
+  dim3 grid(plan.tiles, splits);
+  dw_partial_kernel<<<grid, 256, 0, stream>>>(a, cot, plan, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  Segments all{};
+  all.n = 1;
+  all.begin[1] = plan.wtot + plan.btot;
+  return reduce(part, splits, all, grads, stream);
+}
+
+cudaError_t launch_fma(const float* origs, const float* dirs, const float* t_start,
+                       const float* t_end, const float* targets, const FmaLayers& layers,
+                       int n_rays, int S, int n_hidden, int D, int C, int Lp, int Ld,
+                       float scale, float alpha_pos, float alpha_dir, float density_scale,
+                       float grad_scale, float* act, float* cot, float* aux, unsigned* masks,
+                       float* part, int splits, float* grads, float* rgb_out, float* d_origs,
+                       float* d_dirs, float* weights_out, cudaStream_t stream) {
   const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
   const Layout lay{P, Q, D, C, n_hidden + 1};
   const size_t floats = round4(Lp + Ld) + 2 * kGradRows + 2 * kRows +
                         static_cast<size_t>(kRows) *
                             (2 * round4(D + 1) + round4(P) + round4(Q) + 3);
   const size_t bytes = floats * sizeof(float);
-  auto kernel = flagship_train_kernel<WT, kBf16, AT>;
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto kernel = flagship_train_fma_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<n_rays, kThreads, bytes, stream>>>(
-      origs, dirs, t_start, t_end, targets, layers, wt, S, n_hidden, D, C, Lp, Ld, scale,
-      alpha_pos, alpha_dir, density_scale, grad_scale, static_cast<AT*>(act), cot, aux,
-      masks, rgb_out, d_origs, d_dirs, weights_out);
+      origs, dirs, t_start, t_end, targets, layers, S, n_hidden, D, C, Lp, Ld, scale,
+      alpha_pos, alpha_dir, density_scale, grad_scale, act, cot, aux, masks, rgb_out, d_origs,
+      d_dirs, weights_out);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const GemmPlan plan = make_plan(lay, static_cast<long long>(n_rays) * S, splits);
   dim3 grid(plan.tiles, splits);
-  dw_partial_kernel<AT, kBf16><<<grid, 256, 0, stream>>>(static_cast<const AT*>(act), cot,
-                                                         plan, part);
+  dw_partial_fma_kernel<<<grid, 256, 0, stream>>>(act, cot, plan, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   Segments all{};
@@ -443,46 +799,60 @@ cudaError_t launch(const float* origs, const float* dirs, const float* t_start,
 
 }  // namespace
 
-// Inputs: origs, dirs, targets (n_rays, 3); t_start, t_end (n_rays, S); w_ptrs /
-// b_ptrs: the 2 (n_hidden + 1) + 2 layers in the order segment 1, segment 2,
-// colour head, weights (in, out) in bf16 when bf16 != 0 else fp32, biases fp32;
-// wt_ptrs: the same weights transposed to (out, in). grad_scale = 2 loss_scale /
-// (n_rays 3). Workspaces: act (n_rays S, act_width) in the compute type, cot
-// (n_rays S, cot_width) fp32, aux (n_rays S, 6) fp32, masks (n_rays
-// ceil(S / 32), mask_width) 32-bit words, part (splits, n_grads) fp32, with
-// act_width / cot_width / mask_width as `Layout` computes them. Outputs: grads
-// (n_grads) = every layer's dW (in, out) in layer order, then every db;
-// rgb_out, d_origs, d_dirs (n_rays, 3); weights_out (n_rays, S) or null.
+// Inputs: origs, dirs, targets (n_rays, 3); t_start, t_end (n_rays, S); the 2
+// (n_hidden + 1) + 2 layers in the order segment 1, segment 2, colour head:
+// with bf16 != 0 (the tensor-core route) wf_ptrs / wb_ptrs are the forward and
+// backward B operands packed by `train_megakernel.pack_b` and w_density is
+// W[:, D] of the last segment layer, bf16, and tile_rows is the row tile kR,
+// 64 or 32 (`train_megakernel.tile_rows`); with bf16 == 0 (the FMA route)
+// wf_ptrs are the weights (in, out) and wb_ptrs the same transposed (out,
+// in), fp32, and w_density and tile_rows are unused; b_ptrs: the biases,
+// fp32. grad_scale = 2 loss_scale / (n_rays 3). Workspaces: act (n_rays S,
+// act_width) in the compute type, cot (n_rays S, cot_width) fp32, aux (n_rays
+// S, 6) fp32, masks (halves, mask_width) 32-bit words with halves = blocks x
+// tiles_per_block(S, kR) x kR / 32, blocks = ceil(n_rays / rays_per_block(S,
+// kR)) (tensor-core route) or n_rays ceil(S / 32) (FMA route),
+// part (splits, n_grads) fp32, with act_width / cot_width / mask_width as
+// `Layout` computes them. Outputs: grads (n_grads) = every layer's dW (in,
+// out) in layer order, then every db; rgb_out, d_origs, d_dirs (n_rays, 3);
+// weights_out (n_rays, S) or null.
 extern "C" int netpu_flagship_train(
     const float* origs, const float* dirs, const float* t_start, const float* t_end,
-    const float* targets, const void* const* w_ptrs, const float* const* b_ptrs,
-    const void* const* wt_ptrs, int n_layers, int bf16, int n_rays, int S, int n_hidden,
-    int D, int C, int Lp, int Ld, float scale, float alpha_pos, float alpha_dir,
-    float density_scale, float grad_scale, void* act, float* cot, float* aux, unsigned* masks,
-    int act_width, int cot_width, float* part, int splits, float* grads, float* rgb_out,
-    float* d_origs,
-    float* d_dirs, float* weights_out, void* stream) {
+    const float* targets, const void* const* wf_ptrs, const void* const* wb_ptrs,
+    const float* const* b_ptrs, const void* w_density, int n_layers, int bf16, int tile_rows,
+    int n_rays, int S, int n_hidden, int D, int C, int Lp, int Ld, float scale, float alpha_pos,
+    float alpha_dir, float density_scale, float grad_scale, void* act, float* cot, float* aux,
+    unsigned* masks, int act_width, int cot_width, float* part, int splits, float* grads,
+    float* rgb_out, float* d_origs, float* d_dirs, float* weights_out, void* stream) {
   const Layout lay{3 + 6 * Lp, 3 + 6 * Ld, D, C, n_hidden + 1};
   if (n_hidden < 1 || n_layers != 2 * (n_hidden + 1) + 2 || n_layers > kMaxLayers ||
-      act_width != lay.act_width() || cot_width != lay.cot_width() || splits < 1)
+      act_width != lay.act_width() || cot_width != lay.cot_width() || splits < 1 ||
+      (bf16 && tile_rows != 64 && tile_rows != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  Layers layers;
-  Transposed wt;
-  for (int i = 0; i < n_layers; ++i) {
-    layers.w[i] = w_ptrs[i];
-    layers.b[i] = b_ptrs[i];
-    wt.w[i] = wt_ptrs[i];
-  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16, true, __nv_bfloat16>(
-                 origs, dirs, t_start, t_end, targets, layers, wt, n_rays, S, n_hidden, D, C,
-                 Lp, Ld, scale, alpha_pos, alpha_dir, density_scale, grad_scale, act, cot, aux,
-                 masks, part, splits, grads, rgb_out, d_origs, d_dirs, weights_out, st)
-           : launch<float, false, float>(
-                 origs, dirs, t_start, t_end, targets, layers, wt, n_rays, S, n_hidden, D, C,
-                 Lp, Ld, scale, alpha_pos, alpha_dir, density_scale, grad_scale, act, cot, aux,
-                 masks, part, splits, grads, rgb_out, d_origs, d_dirs, weights_out, st);
-  return static_cast<int>(err);
+  if (bf16) {
+    TileWeights wts{};
+    for (int i = 0; i < n_layers; ++i) {
+      wts.fwd[i] = wf_ptrs[i];
+      wts.bwd[i] = wb_ptrs[i];
+      wts.b[i] = b_ptrs[i];
+    }
+    wts.w_density = w_density;
+    auto tc = tile_rows == 64 ? launch_tc<64> : launch_tc<32>;
+    return static_cast<int>(tc(origs, dirs, t_start, t_end, targets, wts, n_rays, S, n_hidden,
+                               D, C, Lp, Ld, scale, alpha_pos, alpha_dir, density_scale,
+                               grad_scale, act, cot, aux, masks, part, splits, grads, rgb_out,
+                               d_origs, d_dirs, weights_out, st));
+  }
+  FmaLayers layers{};
+  for (int i = 0; i < n_layers; ++i) {
+    layers.w[i] = static_cast<const float*>(wf_ptrs[i]);
+    layers.b[i] = b_ptrs[i];
+    layers.wt[i] = static_cast<const float*>(wb_ptrs[i]);
+  }
+  return static_cast<int>(launch_fma(
+      origs, dirs, t_start, t_end, targets, layers, n_rays, S, n_hidden, D, C, Lp, Ld, scale,
+      alpha_pos, alpha_dir, density_scale, grad_scale, static_cast<float*>(act), cot, aux,
+      masks, part, splits, grads, rgb_out, d_origs, d_dirs, weights_out, st));
 }

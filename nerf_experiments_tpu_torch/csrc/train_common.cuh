@@ -1,9 +1,11 @@
-// Phase B of the two training kernels (`flagship_train.cu`, `garf_train.cuh`):
-// dW = A^T G and db = sum_rows G for a chain of linear layers, with A read from
-// the activation workspace (fp32 or bf16) and G from the fp32 cotangent
-// workspace that phase A wrote. A tiled GEMM on the CUDA cores, split over the
-// rows into fixed partials; `reduce` adds the partials in a fixed order. No
-// atomics: two launches give bitwise-equal gradients.
+// Phase B of the training kernels (`flagship_train.cu`, `garf_train.cuh`,
+// `fused_mlp.cu`): dW = A^T G and db = sum_rows G for a chain of linear layers,
+// with A read from the activation workspace (fp32 or bf16) and G from the fp32
+// cotangent workspace that phase A wrote. A tiled GEMM split over the rows
+// into fixed partials; `reduce` adds the partials in a fixed order. No
+// atomics: two launches give bitwise-equal gradients. Two tile bodies:
+// `dw_tile` on the CUDA cores (the GARF train kernel and the fused MLP chain)
+// and `dw_tile_tc` on the tensor cores (the flagship train kernel, bf16).
 #pragma once
 
 #include "flagship_common.cuh"
@@ -154,6 +156,99 @@ __device__ __forceinline__ void dw_tile_stored(const AT* __restrict__ act,
                                                float* __restrict__ part) {
   const int a_col = t.ly.a_col(t.k0 + static_cast<int>(threadIdx.x) % kTile);
   dw_tile<kBf16>(
+      plan, t, cot,
+      [&](long long row) { return a_col >= 0 ? load_act(act + row * plan.AW + a_col) : 0.f; },
+      sm, part);
+}
+
+// The tensor-core tile's staging: a kChunk-row slice of A and of G, each
+// stored transposed ([column][row]) in bf16, since the rows are the GEMM's
+// reduction and mma.sync reads its A and B fragments along k.
+struct DwTcSmem {
+  static constexpr int kLd = kChunk + Mma<true>::kPad;
+  __nv_bfloat16 A[kTile][kLd];
+  __nv_bfloat16 G[kTile][kLd];
+  float red[256];
+};
+
+// `dw_tile` on the tensor cores for bf16 (`flagship_common.cuh`: mma.sync
+// m16n8k16): the same tile, rows, db and output, with G rounded to bf16 as in
+// `dw_tile`. Warp w owns dW rows 32 (w % 4).. and columns 64 (w / 4).. of the
+// tile: 2 m16 x 8 n8 fragments.
+template <typename LoadA>
+__device__ __forceinline__ void dw_tile_tc(const GemmPlan& plan, const DwTile& t,
+                                           const float* __restrict__ cot, LoadA load_a,
+                                           DwTcSmem& sm, float* __restrict__ part) {
+  using M = Mma<true>;
+  constexpr int kLd = DwTcSmem::kLd;
+  const GemmLayer& ly = t.ly;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col = tid & (kTile - 1);  // the column this thread loads
+  const int ng = t.n0 + col;
+  const int K = ly.k1 + ly.k2;
+  const bool g_live = ng < ly.n;
+  const int wm = warp & 3, wn = warp >> 2;
+
+  float acc[8][2][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+  float db = 0.f;
+  for (long long r0 = t.r_begin; r0 < t.r_end; r0 += kChunk) {
+    for (int e = tid; e < kChunk * kTile; e += 256) {
+      const int rr = e / kTile;
+      const long long row = r0 + rr;
+      const bool live = row < t.r_end;
+      store_act(&sm.A[col][rr], live ? load_a(row) : 0.f);
+      const float g = (live && g_live) ? cot[row * plan.GW + ly.g + ng] : 0.f;
+      db += g;
+      store_act(&sm.G[col][rr], cde<true>(g));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k0 = 0; k0 < kChunk; k0 += M::kK) {
+      typename M::A af[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) M::load_a(af[i], &sm.A[0][0], kLd, 32 * wm + 16 * i, k0, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        typename M::B bf;
+        M::load_bt(bf, &sm.G[0][0], kLd, 64 * wn + 8 * j, k0, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) M::mma(acc[j][i], af[i], bf);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part + static_cast<size_t>(blockIdx.y) * (plan.wtot + plan.btot);
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = t.k0 + 32 * wm + 16 * i + g + 8 * (e >> 1);
+        const int n = t.n0 + 64 * wn + 8 * j + 2 * tq + (e & 1);
+        if (k < K && n < ly.n) out[ly.w_off + k * ly.n + n] = acc[j][i][e];
+      }
+  if (t.k0 == 0) {  // uniform over the block
+    sm.red[tid] = db;
+    __syncthreads();
+    if (tid < kTile && g_live) out[plan.wtot + ly.b_off + ng] = sm.red[tid] + sm.red[tid + kTile];
+  }
+}
+
+template <typename AT>
+__device__ __forceinline__ void dw_tile_stored_tc(const AT* __restrict__ act,
+                                                  const float* __restrict__ cot,
+                                                  const GemmPlan& plan, const DwTile& t,
+                                                  DwTcSmem& sm, float* __restrict__ part) {
+  const int a_col = t.ly.a_col(t.k0 + static_cast<int>(threadIdx.x) % kTile);
+  dw_tile_tc(
       plan, t, cot,
       [&](long long row) { return a_col >= 0 ? load_act(act + row * plan.AW + a_col) : 0.f; },
       sm, part);

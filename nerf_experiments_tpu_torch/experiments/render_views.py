@@ -147,24 +147,13 @@ def main(argv=None):
         cfg, dm = entry_configs[args.entry](args)
         params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(args.device)
         return _render(args, cfg, dm, params)
+    model_flags = [v for flag in _RUN_BARF_ARGS
+                   for v in (flag, str(getattr(args, flag.lstrip("-"))))]
     barf_args = run_barf.parse_args([
         "--scene_path", args.scene_path, "--image_size", str(args.image_size),
-        "--batch_size", str(args.batch_size),
-        "--camera_origin_noise_sigma", str(args.camera_origin_noise_sigma),
-        "--camera_rotation_noise_sigma", str(args.camera_rotation_noise_sigma),
-        "--samples_per_ray", str(args.samples_per_ray),
-        "--samples_per_ray_proposal", str(args.samples_per_ray_proposal),
-        "--hidden_dim", str(args.hidden_dim), "--n_hidden", str(args.n_hidden),
-        "--n_segments", str(args.n_segments),
-        "--proposal_hidden_dim", str(args.proposal_hidden_dim),
-        "--proposal_n_hidden", str(args.proposal_n_hidden),
-        "--occ_grid_resolution", str(args.occ_grid_resolution),
-        "--occ_grid_coarse", str(args.occ_grid_coarse),
-        "--occ_grid_update_every", str(args.occ_grid_update_every),
-        "--occ_grid_aabb_half", str(args.occ_grid_aabb_half),
-        "--checkpoint_every_n_epochs", "0",
+        "--batch_size", str(args.batch_size), "--checkpoint_every_n_epochs", "0",
         "--seed", str(args.seed), "--out_dir", args.out_dir,
-    ] + (["--bf16"] if args.bf16 else []))
+    ] + model_flags + (["--bf16"] if args.bf16 else []))
     cfg, dm = run_barf.build_config(barf_args)
     params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(args.device)
     return _render(args, cfg, dm, params)
@@ -206,7 +195,9 @@ def _render(args, cfg, dm, params):
     with torch.no_grad():
         gauge = barf_sys.val_gauge(params, raw, noisy)
 
-    a_pos, a_dir = barf_sys.model_def(cfg.radiance).full_alphas()  # every level on
+    # every position level on; the direction alpha fixed at 4.0, as the JAX
+    # package's render_views serves (its validation unlocks every level)
+    a_pos, a_dir = barf_sys.model_def(cfg.radiance).full_alphas()[0], 4.0
 
     h, w = dataset.image_height, dataset.image_width
     hw = h * w

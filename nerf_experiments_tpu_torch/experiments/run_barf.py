@@ -84,10 +84,11 @@ def parse_args(argv=None):
     p.add_argument("--fused_kernel", action="store_true", default=False,
                    help="run the step through the flagship train kernel "
                         "(ops/train_megakernel.py:flagship_train_grads; "
-                        "flagship configs, gradient-exact). On the H100 this "
-                        "step is still slower than the plain autograd step "
-                        "and takes ~22 KB of device memory per sample row "
-                        "(fp32) for its workspace; see PERF.md")
+                        "flagship configs, gradient-exact). On the H100 it "
+                        "is faster than the plain autograd step with --bf16 "
+                        "(tensor cores) and slower in fp32, and takes ~16 KB "
+                        "(bf16) / ~22 KB (fp32) of device memory per sample "
+                        "row for its workspace; see PERF.md")
     p.add_argument("--train_coarse_block", type=int, default=1,
                    help="block-coarse training: share the coarse stage "
                         "per block of N raster-consecutive rays (not ported yet)")

@@ -54,16 +54,51 @@ def linear_init(generator: torch.Generator, in_features: int, out_features: int,
     return Dense(uniform((in_features, out_features)), uniform((out_features,)))
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 CUDA operands, accumulated and returned in fp32 by one
+    tensor-core GEMM (`aten::mm.dtype`)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """x @ W + b on CUDA with bf16 operands in one GEMM that returns fp32, then
+    + b and the round to bf16. The gradients are the ones autograd gives the
+    CPU path below: dx and dW are fp32 products of the bf16 operands rounded
+    to bf16, db sums the fp32 cotangent. `aten::mm.dtype` has no derivative
+    formula, hence this Function."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b):
+        xb, wb = x2.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x2.dtype, w.dtype)
+        return (_mm_f32(xb, wb) + b).to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xb, wb = ctx.saved_tensors
+        gb = gy.to(torch.bfloat16)
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm_f32(gb, wb.t()).to(torch.bfloat16).to(ctx.dtypes[0])
+        gw = _mm_f32(xb.t(), gb).to(torch.bfloat16).to(ctx.dtypes[1])
+        return gx, gw, gy.float().sum(0)
+
+
 def linear_apply(layer: Dense, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x @ W + b. With a compute dtype (bf16) the operands are rounded to it,
     the products are accumulated in fp32, and the output is stored in the
     compute dtype, as `jax.lax.dot_general(..., preferred_element_type=f32)`
-    followed by `.astype(compute_dtype)` does in the JAX package. The rounded
-    operands are multiplied as fp32 so the accumulation is fp32 on every
-    device."""
+    followed by `.astype(compute_dtype)` does in the JAX package. On CUDA the
+    bf16 operands go into one tensor-core GEMM that returns fp32
+    (`_Bf16Linear`); elsewhere the rounded operands are multiplied as fp32,
+    so the accumulation is fp32 on every device."""
     w, b = layer.w, layer.b
     if compute_dtype is None:
         return x @ w + b
+    if x.is_cuda and compute_dtype == torch.bfloat16:
+        y = _Bf16Linear.apply(x.reshape(-1, x.shape[-1]), w, b)
+        return y.reshape(*x.shape[:-1], w.shape[1])
     y = x.to(compute_dtype).float() @ w.to(compute_dtype).float() + b
     return y.to(compute_dtype)
 

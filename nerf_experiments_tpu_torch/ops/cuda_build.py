@@ -42,22 +42,20 @@ SIGNATURES = {
     # dens, dists, tmid (nullable), colors, weights, trans, stats, n, s,
     # density_scale, stream
     "netpu_render_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    # origs, dirs, t_start, t_end, w_ptrs, b_ptrs, n_layers, bf16, n_rays, S,
-    # n_hidden, D, C, levels_pos, levels_dir, scale, alpha_pos, alpha_dir,
-    # density_scale, out, weights_out (nullable), stream
-    "netpu_flagship_render": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    # origs, dirs, t_start, t_end, wf_ptrs, b_ptrs, w_density, n_layers, bf16,
+    # tile_rows, n_rays, S, n_hidden, D, C, levels_pos, levels_dir, scale,
+    # alpha_pos, alpha_dir, density_scale, out, weights_out (nullable), stream
+    "netpu_flagship_render": [_P] * 7 + [_I] * 10 + [_F] * 4 + [_P] * 3,
     # dens, dists, tmid (nullable), colors, gw, gt, gstats, ddens, ddists,
     # dcolors, n, s, density_scale, stream
     "netpu_render_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    # origs, dirs, t_start, t_end, targets, w_ptrs, b_ptrs, wt_ptrs, n_layers,
-    # bf16, n_rays, S, n_hidden, D, C, levels_pos, levels_dir, scale,
-    # alpha_pos, alpha_dir, density_scale, grad_scale, act, cot, aux, masks,
-    # act_width, cot_width, part, splits, grads, rgb_out, d_origs, d_dirs,
-    # weights_out (nullable), stream
-    "netpu_flagship_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _I, _I,
-                             _P, _I, _P, _P, _P, _P, _P, _P],
+    # origs, dirs, t_start, t_end, targets, wf_ptrs, wb_ptrs, b_ptrs, w_density,
+    # n_layers, bf16, tile_rows, n_rays, S, n_hidden, D, C, levels_pos,
+    # levels_dir, scale, alpha_pos, alpha_dir, density_scale, grad_scale, act,
+    # cot, aux, masks, act_width, cot_width, part, splits, grads, rgb_out,
+    # d_origs, d_dirs, weights_out (nullable), stream
+    "netpu_flagship_train": [_P] * 9 + [_I] * 10 + [_F] * 5 + [_P] * 4 + [_I, _I, _P, _I]
+                            + [_P] * 6,
     # origs, dirs, t_start, t_end, w_ptrs, b_ptrs, p1_ptrs, p2_ptrs, activation,
     # bf16, n_rays, S, gamma, density_scale, out, stream
     "netpu_garf_render": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P] * 2,

@@ -11,12 +11,25 @@ Same name as the JAX package's module, whose `flagship_render` and
 `flagship_train_grads` run the TPU kernels `_render_kernel` and `_kernel`.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
-or the call raises.
+or the call raises. The render kernel runs its products on the tensor cores
+in both compute types, the train kernel in bf16; they take each layer's B
+operand packed in fragment order (`pack_b`): bf16, or fp32 split into TF32
+hi / lo pairs for the 3xTF32 products. The train kernel's fp32 route keeps
+FMA loops on the CUDA cores and takes the weights as they are and
+transposed.
+
+The tensor-core kernels serve any hidden width D and colour width C (padded
+to 16 inside); their row tile is 64 sample rows, or 32 where a 64-row tile's
+shared memory would pass the block's 227 KB (`tile_rows`). Wider layers
+than a 32-row tile holds (D > ~600) take no kernel: `kernels_fit` is False
+and `systems.barf.can_fuse_train_step` / `use_fused_render` send such
+configs down the plain route.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +52,213 @@ def is_flagship(cfg: nerf_mlp.NerfMLPConfig) -> bool:
         and not cfg.delayed_density and pe.scale == de.scale
         and cfg.n_hidden >= 1
     )
+
+
+TILE_ROWS = (64, 32)  # the kernels' row tiles kR, in the order they are tried
+SMEM_LIMIT = 232_448  # the H100's dynamic shared memory a block (`kMaxSmemBytes`)
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def tile_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, rows: int,
+                    train: bool = False) -> int:
+    """Shared memory of a block of the render kernel (train=False) or of the
+    train kernel's tensor-core route (train=True, bf16) with a `rows`-row
+    tile: `TileSmem` (two activation tiles, the two encodings, the warps'
+    weight rings) and the kernel's fp32 arrays (`render_floats`,
+    `train_floats` in csrc/)."""
+    lp, ld = cfg.position_encoder.levels, cfg.direction_encoder.levels
+    P, Q = 3 + 6 * lp, 3 + 6 * ld
+    bf16 = is_bf16(cfg)
+    pad, elem, ring = (8, 2, 8 * 4 * 4 * 32 * 8) if bf16 else (4, 4, 8 * 3 * 4 * 32 * 16)
+    ldb = _round16(max(D + 1, C)) + pad
+    tiles = _round16(rows * (2 * ldb + _round16(P) + _round16(Q) + 2 * pad) * elem)
+    if train:
+        floats = (rows * (6 + 16 + _round16(P) + _round16(Q) + 6 + max(_round16(D), _round16(C))
+                          + 4) + _round4(lp + ld))
+    else:
+        floats = rows * (6 + 8) + _round4(lp + ld)
+    return tiles + ring + 4 * floats
+
+
+def fma_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> int:
+    """Shared memory of a block of the train kernel's fp32 (FMA) route."""
+    lp, ld = cfg.position_encoder.levels, cfg.direction_encoder.levels
+    P, Q = 3 + 6 * lp, 3 + 6 * ld
+    return 4 * (_round4(lp + ld) + 2 * 96 + 2 * 32
+                + 32 * (2 * _round4(D + 1) + _round4(P) + _round4(Q) + 3))
+
+
+def tile_rows(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, train: bool = False) -> Optional[int]:
+    """The row tile of the render kernel (or the train kernel's tensor-core
+    route): the first of `TILE_ROWS` whose block fits in `SMEM_LIMIT`, else
+    None (no kernel for these widths)."""
+    for rows in TILE_ROWS:
+        if tile_smem_bytes(cfg, D, C, rows, train) <= SMEM_LIMIT:
+            return rows
+    return None
+
+
+def kernels_fit(cfg: nerf_mlp.NerfMLPConfig, train: bool = False) -> bool:
+    """Whether the render kernel (and with `train` the train kernel, in the
+    config's compute type) has a block that fits for cfg's widths."""
+    D, C = cfg.hidden_dim, cfg.hidden_dim // 2
+    if tile_rows(cfg, D, C) is None:
+        return False
+    if not train:
+        return True
+    if is_bf16(cfg):
+        return tile_rows(cfg, D, C, train=True) is not None
+    return fma_smem_bytes(cfg, D, C) <= SMEM_LIMIT
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (fp32) rounded to TF32, 10 explicit mantissa bits, to nearest with
+    ties away from zero: the kernels' `cvt.rna.tf32.f32`."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def _pad_parts(mat: torch.Tensor, k_parts, n_parts, fill=0) -> torch.Tensor:
+    """mat (K, N) with each of its K parts and N parts padded to a multiple of
+    16 by `fill`."""
+    kp, np_ = sum(map(_round16, k_parts)), sum(map(_round16, n_parts))
+    pad = torch.full((kp, np_), fill, dtype=mat.dtype, device=mat.device)
+    k_src = k_dst = 0
+    for k in k_parts:
+        n_src = n_dst = 0
+        for n in n_parts:
+            pad[k_dst:k_dst + k, n_dst:n_dst + n] = mat[k_src:k_src + k, n_src:n_src + n]
+            n_src, n_dst = n_src + n, n_dst + _round16(n)
+        k_src, k_dst = k_src + k, k_dst + _round16(k)
+    return pad
+
+
+def _fragment_order(pad: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """A padded B (K, N), or for fp32 its (hi, lo) pair (2, K, N), in fragment
+    order (a view; see `pack_b`)."""
+    if bf16:  # k = 16 ks + 8 h + 2 t + e, n = 8 nt + g -> (nt, ks, g, t, h, e)
+        kp, np_ = pad.shape
+        b = pad.view(kp // 16, 2, 4, 2, np_ // 8, 8)
+        return b.permute(4, 0, 5, 2, 1, 3).reshape(np_ // 8, kp // 16, 32, 4)
+    _, kp, np_ = pad.shape  # k = 8 ks + 4 h + t -> (nt, ks, g, t, hl, h)
+    b = pad.view(2, kp // 8, 2, 4, np_ // 8, 8)
+    return b.permute(4, 1, 5, 3, 0, 2).reshape(np_ // 8, kp // 8, 32, 4)
+
+
+def pack_b(mat: torch.Tensor, k_parts, n_parts, bf16: bool) -> torch.Tensor:
+    """The B operand (K, N) of a tile product, in the kernels' fragment order.
+
+    K is the reduction. `k_parts` / `n_parts` split K and N into parts (a
+    layer's inputs [z | pos_enc], say), each zero-padded to a multiple of 16.
+    bf16 (mma m16n8k16): (N/8, K/16, 32, 4); lane 4 g + t holds B[k][8 nt + g]
+    for k = 16 ks + 2 t + e (e = 0, 1) then + 8. fp32 (3xTF32, m16n8k8): (N/8,
+    K/8, 32, 4) with hi = tf32(B), lo = tf32(B - hi); lane 4 g + t holds hi at
+    k = 8 ks + t and + 4, then lo at the same two. `packed_weights` packs
+    every layer in one gather by the same order."""
+    pad = _pad_parts(mat.float(), k_parts, n_parts)
+    if bf16:
+        return _fragment_order(pad.to(torch.bfloat16), True).contiguous()
+    hi = tf32_round(pad)
+    return _fragment_order(torch.stack([hi, tf32_round(pad - hi)]), False).contiguous()
+
+
+def _layer_parts(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
+    """(input parts, output width) of every layer in the kernels' order."""
+    P = 3 + 6 * cfg.position_encoder.levels
+    Q = 3 + 6 * cfg.direction_encoder.levels
+    L = cfg.n_hidden + 1
+    return ([((P,), D)] + [((D,), D)] * (L - 1) + [((D, P), D)] + [((D,), D)] * (L - 2)
+            + [((D,), D + 1), ((D, Q), C), ((C,), 3)])
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str):
+    """Where every packed element comes from: an index into the layers'
+    weights (in, out) flattened in layer order with one zero after them (fp32:
+    their TF32 hi parts, then the lo parts, each so), and per packed operand
+    its (offset, shape) in the result. Built once per layout and device."""
+    offsets, n_src = [], 0
+    for parts, out in layer_parts:
+        offsets.append(n_src)
+        n_src += sum(parts) * out
+    zero = n_src
+    pieces, fwd, bwd, at = [], [], [], 0
+
+    def add(idx, k_parts, n_parts, into):
+        nonlocal at
+        pad = _pad_parts(idx, k_parts, n_parts, fill=zero)
+        if not bf16:  # (hi, lo): the lo copy of the source follows the hi one
+            pad = torch.stack([pad, pad + (n_src + 1)])
+        order = _fragment_order(pad, bf16)
+        pieces.append(order.reshape(-1))
+        into.append((at, tuple(order.shape)))
+        at += order.numel()
+
+    for i, ((parts, out), off) in enumerate(zip(layer_parts, offsets)):
+        w = torch.arange(off, off + sum(parts) * out).view(sum(parts), out)
+        n_fwd = out - 1 if i == last else out  # the density column goes apart
+        add(w[:, :n_fwd], parts, (n_fwd,), fwd)
+        if backward:
+            add(w.t(), (out,), parts, bwd)
+    return torch.cat(pieces).to(device), fwd, bwd
+
+
+def packed_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev,
+                   backward: bool = False):
+    """The kernels' weights on `dev`: per layer the forward product's B (W,
+    without the density column of the last segment layer) and, with
+    `backward`, the backward product's B (W^T, whose columns are the layer's
+    input parts), each as `pack_b` packs it, all gathered in one call from the
+    flattened weights by `_pack_plan`; the fp32 biases; the density column
+    W[:, D] in the compute type. Returns (fwd, bwd or None, biases, w_density)."""
+    bf16 = is_bf16(cfg)
+    layers = _layers(params)
+    D = params.segments[0].layers[0].w.shape[1]
+    C = params.color[0].w.shape[1]
+    last = 2 * cfg.n_hidden + 1  # the last segment layer: D hidden columns + density
+    index, fwd_at, bwd_at = _pack_plan(tuple(_layer_parts(cfg, D, C)), last, bf16, backward,
+                                       str(torch.device(dev)))
+    ws = [l.w.detach().to(dev, torch.float32).reshape(-1) for l in layers]
+    flat = torch.cat(ws + [ws[0].new_zeros(1)])
+    if bf16:
+        src = flat.to(torch.bfloat16)
+    else:
+        hi = tf32_round(flat)
+        src = torch.cat([hi, tf32_round(flat - hi)])
+    packed = src[index]
+    views = lambda at: [packed[o:o + math.prod(shape)].view(shape) for o, shape in at]
+    biases = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
+    w_density = layers[last].w.detach()[:, D].to(
+        dev, torch.bfloat16 if bf16 else torch.float32).contiguous()
+    return views(fwd_at), (views(bwd_at) if backward else None), biases, w_density
+
+
+# The render kernel's last packed weights, by the parameters they came from:
+# serving and validation render an image in many calls with the same weights.
+_render_pack: dict = {}
+
+
+def render_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev):
+    """`packed_weights(params, cfg, dev)`, packed again only when a layer's
+    tensor, storage or version (bumped by every in-place write: optimizer
+    steps, `copy_`, `load_state_dict`) changed since the last call. The entry
+    holds the tensors, so their ids cannot pass to others."""
+    leaves = [t for l in _layers(params) for t in (l.w, l.b)]
+    key = (tuple((id(t), t.data_ptr(), t._version) for t in leaves), is_bf16(cfg),
+           str(torch.device(dev)))
+    hit = _render_pack.get("last")
+    if hit is not None and hit[0] == key:
+        return hit[2]
+    packed = packed_weights(params, cfg, dev)
+    _render_pack["last"] = (key, leaves, packed)
+    return packed
 
 
 def flagship_render_reference(
@@ -129,10 +349,14 @@ def launch_render_kernel(params, cfg, origs, dirs, t_start, t_end, alpha_pos: fl
     dev = origs.device
     check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end)
     bf16 = is_bf16(cfg)
-    lib = cuda_build.library()
-    ws, bs = device_weights(layers, dev, bf16)
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
+    rows = tile_rows(cfg, D, C)
+    if rows is None:
+        raise ValueError(f"the flagship render kernel has no row tile for hidden width {D} "
+                         f"(colour {C}): such configs take the plain route")
+    lib = cuda_build.library()
+    wf, _, bs, w_density = render_weights(params, cfg, dev)
 
     out = torch.empty((n, 5), dtype=torch.float32, device=dev)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev) if return_weights else None
@@ -140,8 +364,8 @@ def launch_render_kernel(params, cfg, origs, dirs, t_start, t_end, alpha_pos: fl
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.netpu_flagship_render(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
-            pointers(ws), pointers(bs),
-            len(layers), int(bf16), n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
+            pointers(wf), pointers(bs), w_density.data_ptr(),
+            len(layers), int(bf16), rows, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             out.data_ptr(), None if weights is None else weights.data_ptr(), stream)
     cuda_build.check(code, "netpu_flagship_render")
@@ -182,21 +406,36 @@ def flagship_train_grads_reference(
 
 def _train_layout(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
     """Widths of the kernel's workspaces (the `Layout` of
-    `csrc/flagship_train.cu`): activations and cotangents per sample row,
-    ReLU mask words per 32-row chunk."""
+    `csrc/flagship_common.cuh`): activations and cotangents per sample row,
+    ReLU mask words per 32-row half tile."""
     P = 3 + 6 * cfg.position_encoder.levels
     Q = 3 + 6 * cfg.direction_encoder.levels
     L = cfg.n_hidden + 1
     return P + Q + 2 * L * D + C, 2 * L * D + 1 + C + 3, (2 * L - 1) * D + C
 
 
+def _mask_halves(n_rays: int, n_samples: int, bf16: bool, rows: int = TILE_ROWS[0]) -> int:
+    """32-row groups of the ReLU mask words. bf16 (tensor-core route): the
+    32-row parts of the row tiles, a block taking rows // S rays (one when S >
+    rows) in ceil(rays * S / rows) tiles of `rows` rows; fp32 (FMA route):
+    32-row chunks of each ray."""
+    if not bf16:
+        return n_rays * math.ceil(n_samples / 32)
+    rays = max(1, rows // n_samples)
+    return math.ceil(n_rays / rays) * math.ceil(rays * n_samples / rows) * (rows // 32)
+
+
 def train_workspace_bytes(cfg: nerf_mlp.NerfMLPConfig, n_rays: int, n_samples: int,
                           D: int, C: int) -> int:
-    """Device memory `flagship_train_grads` allocates for its workspaces."""
+    """Device memory `flagship_train_grads` allocates for its workspaces:
+    activations (compute type), cotangents and the compositing record (fp32)
+    per sample row, and ReLU mask words per 32 rows (`_mask_halves`, with
+    the row tile of `tile_rows`)."""
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
-    act_bytes = 2 if cfg.compute_dtype == torch.bfloat16 else 4
-    chunks = n_rays * math.ceil(n_samples / 32)
-    return n_rays * n_samples * (act_w * act_bytes + (cot_w + 6) * 4) + chunks * mask_w * 4
+    bf16 = is_bf16(cfg)
+    rows = (tile_rows(cfg, D, C, train=True) if bf16 else None) or TILE_ROWS[0]
+    return (n_rays * n_samples * (act_w * (2 if bf16 else 4) + (cot_w + 6) * 4)
+            + _mask_halves(n_rays, n_samples, bf16, rows) * mask_w * 4)
 
 
 def flagship_train_grads(
@@ -233,22 +472,30 @@ def flagship_train_grads(
     check_rays(n, s, dev, origs=origs, dirs=dirs, t_start=t_start, t_end=t_end,
                targets=targets)
     bf16 = is_bf16(cfg)
-    lib = cuda_build.library()
-    ws, bs = device_weights(layers, dev, bf16)
-    wts = [w.t().contiguous() for w in ws]
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
+    tile = tile_rows(cfg, D, C, train=True) if bf16 else 0
+    if tile is None or (not bf16 and fma_smem_bytes(cfg, D, C) > SMEM_LIMIT):
+        raise ValueError(f"the flagship train kernel has no block for hidden width {D} "
+                         f"(colour {C}): such configs take the plain route")
+    lib = cuda_build.library()
+    if bf16:  # the tensor-core route: packed B operands
+        wf, wb, bs, w_density = packed_weights(params, cfg, dev, backward=True)
+    else:  # the FMA route: W (in, out) and W^T
+        wf, bs = device_weights(layers, dev, False)
+        wb, w_density = [w.t().contiguous() for w in wf], None
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
     rows = n * s
     # phase B splits the rows into fixed partials, added in a fixed order
     splits = max(1, min(64, math.ceil(rows / 16384)))
-    n_grads = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    n_grads = sum(l.w.numel() + l.b.numel() for l in layers)
     f32 = dict(dtype=torch.float32, device=dev)
     act = torch.empty((rows, act_w), dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=dev)
     cot = torch.empty((rows, cot_w), **f32)
     aux = torch.empty((rows, 6), **f32)
-    masks = torch.empty((n * math.ceil(s / 32), mask_w), dtype=torch.int32, device=dev)
+    masks = torch.empty((_mask_halves(n, s, bf16, tile), mask_w), dtype=torch.int32,
+                        device=dev)
     part = torch.empty((splits, n_grads), **f32)
     flat = torch.empty((n_grads,), **f32)
     rgb = torch.empty((n, 3), **f32)
@@ -259,8 +506,9 @@ def flagship_train_grads(
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.netpu_flagship_train(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
-            targets.data_ptr(), pointers(ws), pointers(bs), pointers(wts),
-            len(layers), int(bf16), n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
+            targets.data_ptr(), pointers(wf), pointers(wb), pointers(bs),
+            None if w_density is None else w_density.data_ptr(), len(layers), int(bf16),
+            tile, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             2.0 * float(loss_scale) / (n * 3.0), act.data_ptr(), cot.data_ptr(),
             aux.data_ptr(), masks.data_ptr(), act_w, cot_w, part.data_ptr(), splits,
@@ -271,12 +519,12 @@ def flagship_train_grads(
     flagship_train_grads.launches += 1
 
     # flat = every dW (in, out) in layer order, then every db
-    grads, w_off, b_off = {}, 0, sum(w.numel() for w in ws)
-    for name, w, b in zip(_layer_names(params), ws, bs):
-        grads[f"{name}.w"] = flat[w_off:w_off + w.numel()].view(w.shape)
-        grads[f"{name}.b"] = flat[b_off:b_off + b.numel()].view(b.shape)
-        w_off += w.numel()
-        b_off += b.numel()
+    grads, w_off, b_off = {}, 0, sum(l.w.numel() for l in layers)
+    for name, l in zip(_layer_names(params), layers):
+        grads[f"{name}.w"] = flat[w_off:w_off + l.w.numel()].view(l.w.shape)
+        grads[f"{name}.b"] = flat[b_off:b_off + l.b.numel()].view(l.b.shape)
+        w_off += l.w.numel()
+        b_off += l.b.numel()
     out = (rgb, grads, d_origs, d_dirs)
     return out + (weights,) if return_weights else out
 

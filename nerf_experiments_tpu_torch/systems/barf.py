@@ -43,6 +43,7 @@ from nerf_experiments_tpu_torch.ops.train_megakernel import (
     flagship_render,
     flagship_train_grads,
     is_flagship,
+    kernels_fit,
 )
 from nerf_experiments_tpu_torch.training import optim
 
@@ -81,8 +82,10 @@ class NerfMLPDef:
                      for enc in (self.cfg.position_encoder, self.cfg.direction_encoder))
 
     def full_alphas(self) -> Tuple[float, float]:
-        return (float(self.cfg.position_encoder.levels),
-                float(self.cfg.direction_encoder.levels))
+        """Every level on: each encoder's level count, 0 for one that has none
+        (Identity), as `getattr(enc, "levels", 0)` in the JAX package."""
+        return tuple(float(getattr(enc, "levels", 0))
+                     for enc in (self.cfg.position_encoder, self.cfg.direction_encoder))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,7 +262,7 @@ def forward(
     fine bins of a hierarchical config are constants, as in the JAX package.
 
     fused=True (eval and serving only: no gradient) runs the radiance pass
-    through `flagship_render` and needs `can_fuse_train_step(cfg)`."""
+    through `flagship_render` and needs `can_fuse_render(cfg)`."""
     n_rays = ray_origs.shape[0]
     device = ray_origs.device
     ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
@@ -267,8 +270,8 @@ def forward(
     offset = cfg.uniform_sampling_offset_size if stratified else 0.0
     needs_gen = strategy == "stratified_uniform" or offset != 0.0
     gen = generator if needs_gen else None
-    if fused and not can_fuse_train_step(cfg):
-        raise ValueError("fused=True needs a config that can_fuse_train_step accepts")
+    if fused and not can_fuse_render(cfg):
+        raise ValueError("fused=True needs a config that can_fuse_render accepts")
 
     def stratified_bins(n_samples):
         return sampling.sample_stratified(
@@ -495,17 +498,28 @@ def _flagship_mlp(model) -> Optional[nerf_mlp.NerfMLPConfig]:
     return None
 
 
-def can_fuse_train_step(cfg: BarfConfig) -> bool:
-    """True when the flagship kernels cover this config's radiance pass."""
-    return (_flagship_mlp(cfg.radiance) is not None
+def can_fuse_render(cfg: BarfConfig) -> bool:
+    """True when the flagship render kernel covers this config's radiance
+    pass: the flagship architecture, middle-point integration, the kernel's
+    density scale, and layers narrow enough for its row tile
+    (`train_megakernel.kernels_fit`)."""
+    mlp = _flagship_mlp(cfg.radiance)
+    return (mlp is not None
             and cfg.integration_strategy == "middle"
-            and cfg.density_scale == render.DENSITY_SCALE)
+            and cfg.density_scale == render.DENSITY_SCALE
+            and kernels_fit(mlp))
+
+
+def can_fuse_train_step(cfg: BarfConfig) -> bool:
+    """True when the flagship kernels cover this config's radiance pass, the
+    train kernel's block included."""
+    return can_fuse_render(cfg) and kernels_fit(cfg.radiance, train=True)
 
 
 def use_fused_render(cfg: BarfConfig, device) -> bool:
     """Eval rendering goes through the render kernel when the config allows
     it and the tensors live on a CUDA device."""
-    return can_fuse_train_step(cfg) and torch.device(device).type == "cuda"
+    return can_fuse_render(cfg) and torch.device(device).type == "cuda"
 
 
 def pose_error_metric(params: BarfParams, camera_origins_raw, camera_origins_noisy):

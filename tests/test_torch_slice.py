@@ -115,9 +115,13 @@ def test_blender_data_module_matches_jax(scene, stage):
         assert t.pixel_width == j.pixel_width
 
 
-# the two configs of the slice, cut to a narrow width
+# the two configs of the slice, cut to a narrow width, and the dense one with
+# 6 direction levels: render_views serves at a direction alpha of 4.0, as the
+# JAX package's does, not with every level on
 CONFIGS = {
     "dense": ["--samples_per_ray", "16", "--n_hidden", "2", "--hidden_dim", "32"],
+    "dense_dir6": ["--samples_per_ray", "16", "--n_hidden", "2", "--hidden_dim", "32",
+                   "--fourier_levels_dir", "6"],
     "northstar": ["--samples_per_ray", "8", "--samples_per_ray_proposal", "16",
                   "--proposal_hidden_dim", "16", "--proposal_n_hidden", "1",
                   "--n_hidden", "2", "--hidden_dim", "32"],
@@ -131,7 +135,8 @@ def jax_config(flags, n_train):
 
     def mlp(n_hidden, hidden_dim, n_segments):
         return jmlp.NerfMLPConfig(
-            position_encoder=JBarf(levels=10, **enc), direction_encoder=JBarf(levels=4, **enc),
+            position_encoder=JBarf(levels=10, **enc),
+            direction_encoder=JBarf(levels=int(f.get("--fourier_levels_dir", 4)), **enc),
             n_hidden=n_hidden, hidden_dim=hidden_dim, n_segments=n_segments)
 
     proposal = None
