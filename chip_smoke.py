@@ -43,9 +43,10 @@ Phases, each raising on failure:
      8192 rays (the compositing backward by its `torch.profiler` device
      time per call on inputs rotated past the L2), profile one fused step
      of each config, and time K4's weight packing (host and device) in bf16;
- 11. hold the GARF render kernel (K6) against
-     `garf_radiance_render_reference` for gauss, gabor and sarf, fp32 and
-     bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a ragged 50;
+ 11. hold the GARF render kernel (K6, tensor cores: bf16, or 3xTF32 in
+     fp32) against `garf_radiance_render_reference` for gauss, gabor and
+     sarf, fp32 and bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a
+     ragged 50;
  12. hold the GARF train kernel (K5) against
      `garf_radiance_train_grads_reference` for the same settings at 1024 x
      192 and 256 x 50: rgb, weights, geometry gradients and every dW / db /
@@ -59,7 +60,9 @@ Phases, each raising on failure:
      gabor bf16 and sarf runs), with K5, K6 and K1 launches counted;
  15. time K5 (4096 x 192) and K6 (8192 x 192) against their plain versions,
      the GARF train step fused against plain at 4096 rays, the proposal
-     stage, and profile one fused GARF step;
+     stage, profile one fused GARF step (K5's phase A against phase B), and
+     time the GARF weight packing a step (host and device) and the render
+     wrapper's cached weights;
  16. hold the hash-grid forward kernel (K7) against `encode_reference`: 3-D
      at run_3d_ingp's defaults and 524,288 points, 2-D at run_2d_ingp's, F =
      8 at 4 levels; xor and additive hash, fp32 and bf16 rows; N(0, 1)
@@ -1150,6 +1153,22 @@ def phase_garf_training(dev, workdir):
     return total
 
 
+def time_garf_packing(params, cfg, dev, tag: str):
+    """K5's weight packing for one train step (`packed_weights`, forward and
+    backward operands of linears 1..9 in one gather, and linear 0's W and the
+    density column in the compute type), host and device time a call, and
+    the host time of K6's `render_weights` when the weights are unchanged
+    (the cached packs)."""
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import packed_weights, render_weights
+
+    pack = lambda: packed_weights(params, cfg, dev, backward=True)
+    h, d = host_ms(pack), device_ms(pack, calls=50)
+    cached = host_ms(lambda: render_weights(params, cfg, dev))
+    log(f"GARF weight packing {tag}: one gather host {h:.4f} ms, device {d:.4f} ms a step; "
+        f"render_weights with unchanged weights host {cached:.4f} ms a call")
+    return h, d, cached
+
+
 def phase_garf_timing(dev):
     """K5 and its plain version at 4096 x 192, K6 and its plain version at
     8192 x 192, the fused and plain train steps at batch 4096 (in turns), the
@@ -1225,6 +1244,7 @@ def phase_garf_timing(dev):
         profile_step(lambda: fused_step(state, batch,
                                         torch.Generator(device=dev).manual_seed(44), 1.0),
                      f"GARF fused train step {tag}")
+        times[f"pack_{tag}"] = time_garf_packing(params.radiance, cfg.net, dev, tag)
         del state, params
         torch.cuda.empty_cache()
     return times
@@ -2164,9 +2184,11 @@ def kernel_bounds():
     of the layers' multiply-adds (2 per weight a sample: forward; 6: forward
     and both backward products) or, for the memory-bound kernels, a count
     per element from the source (K1 ~16 a sample, K3 ~30, K7 6 d per level
-    and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d + 2))). K2 and K11
-    (K2's kernel) run their products on the tensor cores: in fp32 as three
-    TF32 products each (3xTF32) at the TF32 rate, in bf16 at the bf16 rate.
+    and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d + 2))). K2, K11
+    (K2's kernel), K5 and K6 run their products on the tensor cores: in fp32
+    as three TF32 products each (3xTF32) at the TF32 rate, in bf16 at the
+    bf16 rate (K5 / K6 also keep their fp32 bound at the CUDA cores' rate,
+    the `_cuda_cores` keys; K9 / K10 their bf16 bound, the `_bf16` keys).
     K4 in bf16 at the bf16 rate; K4 in fp32 needs products exact to fp32
     (3xTF32 flips ReLUs: `scripts/tf32_relu_flips.py`), so it is bounded by
     the cheapest such split on the tensor cores: three bf16 parts a factor,
@@ -2188,11 +2210,20 @@ def kernel_bounds():
     out["flagship_train_bf16"] = bound(rays_io, 6 * macs * N_RAYS * 128, BF16_FLOP_PER_S)
     out["flagship_train_bf16_s32"] = bound(f32 * N_RAYS * (6 + 2 * 32 + 5),
                                            6 * macs * N_RAYS * 32, BF16_FLOP_PER_S)
+    # K5 / K6 run their products on the tensor cores: fp32 as three TF32
+    # products each (3xTF32) at the TF32 rate, bf16 at the bf16 rate; the
+    # `_cuda_cores` keys keep the fp32 figure at the CUDA cores' rate
     rad = garf.radiance_init(torch.Generator().manual_seed(0), garf_cfg("gauss", False))
     gmacs = weight_count(rad)
-    out["garf_train"] = bound(f32 * GARF_RAYS * (9 + 2 * 192), 6 * gmacs * GARF_RAYS * 192)
-    out["garf_render"] = bound(f32 * 2 * GARF_RAYS * (6 + 2 * 192 + 5),
-                               2 * gmacs * 2 * GARF_RAYS * 192)
+    train_io, train_ops = f32 * GARF_RAYS * (9 + 2 * 192), 6 * gmacs * GARF_RAYS * 192
+    render_io = f32 * 2 * GARF_RAYS * (6 + 2 * 192 + 5)
+    render_ops = 2 * gmacs * 2 * GARF_RAYS * 192
+    out["garf_train"] = bound(train_io, 3 * train_ops, TF32_FLOP_PER_S)
+    out["garf_train_bf16"] = bound(train_io, train_ops, BF16_FLOP_PER_S)
+    out["garf_train_cuda_cores"] = bound(train_io, train_ops)
+    out["garf_render"] = bound(render_io, 3 * render_ops, TF32_FLOP_PER_S)
+    out["garf_render_bf16"] = bound(render_io, render_ops, BF16_FLOP_PER_S)
+    out["garf_render_cuda_cores"] = bound(render_io, render_ops)
     B, L, T, F, D = INGP_POINTS, 16, 2**16, 2, 3
     out["hash_encode_fwd"] = bound(f32 * (B * D + L * T * F + B * L * F),
                                    B * L * (6 * D + 2**D * (D - 1 + 2 * F)))
@@ -2209,6 +2240,12 @@ def kernel_bounds():
     out["fused_mlp_bwd"] = bound(f32 * (MIP_ROWS * (rows_io + sum(d0 for d0, _ in io))
                                         + 2 * weights),
                                  6 * weight_count(mip) * MIP_ROWS)
+    # ... and in bf16 at the bf16 tensor-core rate (the same bytes)
+    out["fused_mlp_fwd_bf16"] = bound(f32 * (MIP_ROWS * rows_io + weights),
+                                      2 * weight_count(mip) * MIP_ROWS, BF16_FLOP_PER_S)
+    out["fused_mlp_bwd_bf16"] = bound(f32 * (MIP_ROWS * (rows_io + sum(d0 for d0, _ in io))
+                                             + 2 * weights),
+                                      6 * weight_count(mip) * MIP_ROWS, BF16_FLOP_PER_S)
     # K11: K2's work at 8192 x 128 (rays and offsets in, rgb out)
     out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 3 * 2 * macs * N_RAYS * 128,
                                      TF32_FLOP_PER_S)
@@ -2238,7 +2275,9 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s) "
         f"-> {built.path.name}")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if line.startswith("== "):  # a source and the seconds its compiler took
+            log("  nvcc " + line[3:])
+        elif "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
     def run(num: int, fn, *a):
@@ -2315,7 +2354,7 @@ def main() -> int:
          "launches": garf_launches["garf_train"], "max_abs_err": k5_err,
          "ms": garf_times["K5_gauss_fp32"][0], "plain_ms": garf_times["K5_gauss_fp32"][1]},
         {"name": "garf_render", "route": "cuda",
-         "source": "nerf_experiments_tpu_torch/csrc/garf_render.cu",
+         "source": "nerf_experiments_tpu_torch/csrc/garf_render.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:376",
          "launches": garf_launches["garf_render"], "max_abs_err": k6_err,
          "ms": garf_times["K6_gauss_fp32"][0], "plain_ms": garf_times["K6_gauss_fp32"][1]},
@@ -2355,14 +2394,22 @@ def main() -> int:
     for k in kernels["kernels"]:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = library.get(k["name"])
-    # K2 / K4 in bf16 beside their fp32 numbers, against the bf16 tensor-core bound
+    # K2 / K4 / K5 / K6 / K9 / K10 in bf16 beside their fp32 numbers (K5 / K6:
+    # gabor in bf16, gauss in fp32), against the bf16 tensor-core bound; K5 /
+    # K6 also beside their fp32 bound at the CUDA cores' rate
     bf16_times = {"flagship_render": {"": times["K2_S128_bf16"]},
                   "flagship_train": {"": train_times["K4_S128_bf16"],
-                                     "_s32": train_times["K4_S32_bf16"]}}
+                                     "_s32": train_times["K4_S32_bf16"]},
+                  "garf_train": {"": garf_times["K5_gabor_bf16"]},
+                  "garf_render": {"": garf_times["K6_gabor_bf16"]},
+                  "fused_mlp_fwd": {"": mip_times["K9_bf16"][:2]},
+                  "fused_mlp_bwd": {"": mip_times["K10_bf16"][:2]}}
     for k in kernels["kernels"]:
         for suffix, (ms, plain) in bf16_times.get(k["name"], {}).items():
             k[f"ms_bf16{suffix}"], k[f"plain_ms_bf16{suffix}"] = ms, plain
             k[f"bound_ms_bf16{suffix}"] = bounds[f"{k['name']}_bf16{suffix}"][0]
+        if f"{k['name']}_cuda_cores" in bounds:
+            k["bound_ms_fp32_cuda_cores"] = bounds[f"{k['name']}_cuda_cores"][0]
     idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
     require(not idle, f"kernels never launched on their main paths: {idle}")
     for k in kernels["kernels"]:

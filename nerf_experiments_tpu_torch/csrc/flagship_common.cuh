@@ -1,11 +1,13 @@
 // Device helpers shared by the flagship BARF radiance kernels
-// (`flagship_render.cu`: K2, which K11 launches too; `flagship_train.cu`: K4)
-// and, for the FMA helpers (`accumulate`, `store_act`), by `fused_mlp.cu` and
-// `garf_common.cuh`: there one thread owns an output column and keeps kRows
-// row accumulators in registers, so one weight load feeds kRows FMAs.
+// (`flagship_render.cu`: K2, which K11 launches too; `flagship_train.cu`: K4),
+// the GARF kernels (`garf_common.cuh`: K5, K6) and, for the FMA helpers
+// (`accumulate`, `store_act`), by `fused_mlp.cu` and K4's fp32 route: there
+// one thread owns an output column and keeps kRows row accumulators in
+// registers, so one weight load feeds kRows FMAs.
 //
-// K2 and K4 run their matrix products on the tensor cores through the tile at
-// the end of this file (`tile_gemm`):
+// K2, K4 (bf16), K5 and K6 run their matrix products on the tensor cores
+// through the tile at the end of this file (`tile_gemm`; the GARF kernels
+// bring their own epilogues and row tiles, `garf_common.cuh`):
 //   * row tile: a block of kThreads = 256 threads (8 warps) owns kR = 64 sample
 //     rows; rays are packed kR / S to a block when S <= kR, so the north-star
 //     shape (S = 32) fills a tile with two rays. Layers wide enough that a
@@ -313,7 +315,11 @@ struct Mma<false> {
 // memory): each lane cp.asyncs its own share of the warp's fragments
 // Mma::kStages - 1 k-steps ahead and reads back only what it copied, so no
 // barrier is needed, only its own cp.async.wait_group.
-template <bool kBf16, int kR, typename Epi>
+// kFlush > 0: the tensor cores add each product into their accumulator with
+// truncation, so a long k-chain drifts (a bias of ~2^-24 an add); the chain
+// runs kFlush k-steps at a time in its own registers, each added into the
+// result by ordinary fp32 adds (the GARF kernels' fp32 route, K up to 1024).
+template <bool kBf16, int kR, int kFlush = 0, typename Epi>
 __device__ __forceinline__ void tile_gemm(const typename Mma<kBf16>::ET* a1, int ld1, int s1,
                                           const typename Mma<kBf16>::ET* a2, int ld2, int s2,
                                           const void* packed, typename Mma<kBf16>::Frag* ring,
@@ -337,13 +343,13 @@ __device__ __forceinline__ void tile_gemm(const typename Mma<kBf16>::ET* a1, int
       }
       cp_async_commit();
     };
-    float acc[kWarpN][kMT][4];
+    float acc[kWarpN][kMT][4], run[kWarpN][kMT][4];  // run: the chain, with kFlush
 #pragma unroll
     for (int j = 0; j < kWarpN; ++j)
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[j][i][e] = run[j][i][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < M::kStages - 1; ++ks) issue(ks);
     for (int ks = 0; ks < steps; ++ks) {
@@ -363,7 +369,18 @@ __device__ __forceinline__ void tile_gemm(const typename Mma<kBf16>::ET* a1, int
         M::load_a(af, a, ld, 16 * i, k0, lane);
 #pragma unroll
         for (int j = 0; j < kWarpN; ++j)
-          if (nt0 + j < n_tiles) M::mma(acc[j][i], af, b[j]);
+          if (nt0 + j < n_tiles) M::mma(kFlush > 0 ? run[j][i] : acc[j][i], af, b[j]);
+      }
+      if (kFlush > 0 && ((ks + 1) % imax(kFlush, 1) == 0 || ks + 1 == steps)) {
+#pragma unroll
+        for (int j = 0; j < kWarpN; ++j)
+#pragma unroll
+          for (int i = 0; i < kMT; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[j][i][e] += run[j][i][e];
+              run[j][i][e] = 0.f;
+            }
       }
     }
 #pragma unroll

@@ -1,47 +1,59 @@
 // Training step of the GARF / GaborF / SARF radiance field for one NVIDIA
-// H100: rays + t-bins + targets -> rgb, the compositing weights, the gradient
-// of loss = mean((rgb - target)^2) (over n_rays * 3) with respect to every
-// weight, bias and activation parameter (fp32), and d_origs / d_dirs.
+// H100 (K5): rays + t-bins + targets -> rgb, the compositing weights, the
+// gradient of loss = mean((rgb - target)^2) (over n_rays * 3) with respect to
+// every weight, bias and activation parameter (fp32), and d_origs / d_dirs.
 //
 // Replaces the TPU kernel `nerf_experiments_tpu/ops/garf_megakernel.py:_kernel`
-// (Pallas, entry `garf_radiance_train_grads`). Forward as in `garf_render.cu`,
+// (Pallas, entry `garf_radiance_train_grads`). Forward as in `garf_render.cuh`,
 // then the MSE gradient, the compositing backward and the backward of the net,
 // activation parameters (isd, spread, freq) included.
 //
-// What bounds it on the H100: arithmetic (~3x the forward's 0.6 M
-// multiply-adds per sample) and the workspace. The TPU keeps a 768-row tile in
-// ~26 MB of VMEM from forward through backward; a Hopper block has 227 KB. So,
-// as in `flagship_train.cu`:
-//   * phase A, one block per ray in 32-row chunks (`garf_common.cuh`): the
-//     forward stores each activation layer's output a and pre-activation x
-//     (gabor / sarf also their exp and cos factors) to a device workspace in
-//     the compute type; the 1024-wide layer 0 is not stored but recomputed
-//     from the position, as the TPU does. Warp 0 composites with a shuffle
-//     scan, then walks the chunks back to front for the compositing backward
-//     (reverse scan, suffix carried from the end of the ray, the TPU's `ut`
-//     matmul). The chunks are walked again and the row cotangents carried back
-//     layer by layer (g <- act_bwd((g W^T)), W^T passed transposed so the loads
-//     coalesce) and stored fp32 for phase B. Each thread owns a column, so it
-//     also sums that column's activation-parameter gradients over the chunk;
-//     those, and layer 0's dW / db, go to the ray's own slice of a partials
-//     buffer (written by this block only, chunk by chunk in order). d_origs /
-//     d_dirs are summed per ray in a fixed order;
-//   * phase B (`train_common.cuh`): dW = A^T G and db = sum G for linear
-//     layers 1..9, a tiled GEMM over the rows on the CUDA cores (layer 1's
-//     input, the 1024-wide layer-0 activation, recomputed while loading its
-//     tiles), split over the rows into fixed partials;
-//   * two reductions add the row splits and the rays' partials in a fixed
+// What bounds it on the H100: arithmetic, three times the forward's 596,096
+// multiply-adds a sample (forward, g W^T, A^T G): 2.84 ms at 4096 rays x 192
+// samples at the bf16 tensor-core rate, 17.05 ms for fp32's three TF32
+// products a product; then the workspace (a and x of every activation layer,
+// 6.8 KB a row in bf16, and the fp32 cotangents, 7.2 KB). The TPU keeps a
+// 768-row tile in ~26 MB of VMEM from forward through backward; a Hopper block
+// has 227 KB. So the work is split in two phases, both on the tensor cores:
+//   * phase A, a block of kR / S rays (S <= kR) or one ray walking kR-row
+//     tiles (`garf_common.cuh`: 64 rows bf16, 32 fp32): the forward tile
+//     stores each activation layer's output a and rounded pre-activation x
+//     to the workspace in the compute type (layer 0 is recomputed from the
+//     position, as the TPU does; the backward recomputes the activation's
+//     factors from x rather than storing them); one warp a ray composites
+//     with a shuffle scan and, after the block's last tile, runs the
+//     compositing backward as a reverse scan with the suffix carried from the
+//     end of the ray. The tiles are walked again and the row cotangents go
+//     back layer by layer, g <- act_bwd(g W^T), the same tile product with
+//     B = W^T packed by the wrapper; the epilogue (`GarfBwdEpi`) applies the
+//     activation backward, stores the cotangent fp32 for phase B, and sums
+//     the activation-parameter gradients over its rows (a warp owns its n8
+//     tiles over every row: registers, then shuffles over the 8 row groups)
+//     into the block's own partials, tile after tile. Linear 1's backward
+//     into layer 0 (`L0Epi`) recomputes layer 0's pre-activation per column
+//     and yields layer 0's dW / db and parameter sums the same way, and d_pos
+//     from row sums held in registers. d_origs / d_dirs are summed per ray in
+//     a fixed order;
+//   * phase B (`train_common.cuh`): dW = A^T G and db = sum G for linears
+//     1..9, on the tensor cores in bf16 (`dw_tile_tc`, A and G staged
+//     transposed) and on the CUDA cores in fp32 (`dw_tile`, see
+//     `dw_partial_kernel`); linear 1's input, the 1024-wide layer-0
+//     activation, is recomputed while its tiles are loaded; split over the
+//     rows into fixed partials;
+//   * two reductions add the row splits and the blocks' partials in a fixed
 //     order. No atomics: two launches give bitwise-equal gradients.
-// With bf16, matmul operands (weights, activations, cotangents) are rounded to
-// bf16 and products accumulate in fp32 where the TPU kernel rounds (`cde`);
-// the stored tuple is bf16 as the TPU stores it; bias and activation-parameter
-// gradients sum fp32 values.
-// This is the simple design: FMA loops on the CUDA cores, one block per SM.
+// With bf16, matmul operands (weights, activations, cotangents) are bf16 and
+// products accumulate in fp32, rounding where the TPU kernel rounds (`cde`);
+// the bias and activation-parameter gradients sum fp32 values. In fp32 phase
+// A's products are 3xTF32, the accumulator flushed into fp32 every 8
+// k-steps (`kFlushK`): the net has no ReLU whose mask a 2^-21 product error
+// could flip (the flagship's K4 keeps FMA loops for that), and
+// `tests/test_torch_garf_tc.py` holds emulated 3xTF32 gradients within the
+// fp32 tolerance of the JAX kernel for every family.
 //
-// The kernels are templates over the weight type, the activation family and
-// the workspace type; each family's source (garf_train_<family>.cu) includes
-// this header and instantiates its own, and `garf_train.cu` holds the entry
-// point.
+// The kernels are templates over the compute type and the activation family;
+// each family's source (garf_train_<family>.cu) includes this header and
+// instantiates its own, and `garf_train.cu` holds the entry point.
 #pragma once
 
 #include "garf_common.cuh"
@@ -51,223 +63,306 @@ namespace netpu {
 namespace garf {
 namespace {
 
-constexpr int kAux = 6;        // per-row compositing record: raw density, rgb, T, w
-constexpr int kGradRows = 96;  // threads holding a (row, coordinate) geometry partial
+constexpr int kAux = 6;  // per-row compositing record: raw density, rgb, T, w
 
-// Backward through one linear layer for the chunk's rows, then through the
-// activation before it: t[r][k] = sum_n g[r][n] Wt[n][k] for k < K1 + K2 (Wt
-// the (n_in, K1 + K2) transposed weight). Outputs k < K1: add1[r][k] is added
-// when given, then (kAct >= 0) the activation backward with the stored record
-// `rec` (width K1); the result, the cotangent of the previous layer's output,
-// is stored fp32 to glob, rounded into dst1 and, with raw1, copied fp32 there.
-// The chunk's sums of the activation-parameter gradients go to part1 / part2
-// (set on the first chunk, added after). Outputs k >= K1 are written to dst2.
-template <typename WT, bool kBf16, int kAct, typename AT>
-__device__ void bwd_dense(const float* g, int ldg, int n_in, const void* Wt_, int K1, int K2,
-                          const float* add1, int ld_add, const AT* rec, size_t AW,
-                          const float* p1, const float* p2, float gamma, float* glob,
-                          size_t GW, float* dst1, int ld1, float* raw1, int ld_raw,
-                          float* part1, float* part2, bool first, float* dst2, int ld2,
-                          int rows) {
-  const WT* Wt = static_cast<const WT*>(Wt_);
-  const int K = K1 + K2;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float acc[kRows];
+// Epilogue of a backward product g W^T whose columns are a layer's inputs in
+// two parts. Part 1, columns < k1: the cotangent of the previous layer's
+// output; `add` (fp32, row stride GW) is added to it, then with kAct >= 0
+// (kAct < 0: no activation) the
+// activation backward from the stored pre-activation `xrec` (row stride AW)
+// gives the cotangent of that layer's pre-activation, which goes fp32 to the
+// cotangent workspace `cot` (row stride GW) for the live rows and rounded into
+// `buf`, the next product's A; the tile's sums of the activation-parameter
+// gradients over its live rows go to part1 / part2 (set on the block's first
+// tile, added after). Part 2, columns k1 + m for m < k2: an input's cotangent
+// (d pos, d dir), written into enc[row * eld + m].
+template <bool kBf16, int kAct>
+struct GarfBwdEpi {
+  using ET = typename Mma<kBf16>::ET;
+  int k1;
+  ET* buf;
+  int ld;
+  float* cot;
+  const float* add;
+  const ET* xrec;
+  size_t AW, GW;
+  const float *p1, *p2;
+  float gamma;
+  float *part1, *part2;
+  bool first;
+  float* enc;
+  int eld, k2, rows;
+
+  // gabor / sarf out of line (see `GarfFwdEpi`); gauss inline
+  template <int kMT>
+  __device__ __forceinline__ void operator()(int nt, const float (&c)[kMT][4]) const {
+    if constexpr (kAct == kGabor || kAct == kSarf)
+      out_of_line(nt, c);
+    else
+      body(nt, c);
+  }
+  template <int kMT>
+  __device__ __noinline__ void out_of_line(int nt, const float (&c)[kMT][4]) const {
+    body(nt, c);
+  }
+  template <int kMT>
+  __device__ __forceinline__ void body(int nt, const float (&c)[kMT][4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int col0 = nt * 8 + 2 * t;
+    if (nt * 8 >= k1) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    accumulate(acc, g, ldg, n_in, Wt, 0, K, k);
-    if (k >= K1) {
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows) dst2[r * ld2 + (k - K1)] = acc[r];
-      continue;
-    }
-    float q1 = 0.f, q2 = 0.f, s1 = 0.f, s2 = 0.f;
-    if constexpr (kAct >= 0) {
-      q1 = __ldg(p1 + k);
-      q2 = p2 != nullptr ? __ldg(p2 + k) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) {
-        float v = acc[r];
-        if (add1 != nullptr) v += add1[r * ld_add + k];
-        if constexpr (kAct >= 0) {
-          const AT* e = rec + r * AW + k;
-          const bool four = act_record<kAct>() == 4;
-          v = act_bwd<kAct>(v, load_act(e), load_act(e + K1), four ? load_act(e + 2 * K1) : 0.f,
-                            four ? load_act(e + 3 * K1) : 0.f, q1, q2, gamma, s1, s2);
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * i + g + 8 * (e >> 1), col = col0 + (e & 1) - k1;
+          if (col < k2) enc[row * eld + col] = c[i][e];
         }
-        glob[r * GW + k] = v;
-        dst1[r * ld1 + k] = cde<kBf16>(v);
-        if (raw1 != nullptr) raw1[r * ld_raw + k] = v;
-      }
+      return;
     }
+    float q1[2] = {0.f, 0.f}, q2[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
     if constexpr (kAct >= 0) {
-      float fa, fb;
-      param_factors<kAct>(q1, gamma, fa, fb);
-      part1[k] = first ? fa * s1 : part1[k] + fa * s1;
-      if (part2 != nullptr) part2[k] = first ? fb * s2 : part2[k] + fb * s2;
-    }
-  }
-}
-
-// Backward through linear 1 into layer 0 (its 1024 outputs recomputed from the
-// positions, never stored), in four passes of 256 columns, with layer 0's dW,
-// db and activation-parameter sums into the ray's partials and its position
-// cotangent added to S.dpos. The cotangent of linear 1 is in Q.
-template <typename WT, bool kBf16, int kAct>
-__device__ void bwd_layer0(const Weights& W, float gamma, const Smem& S, int rows,
-                           float* part, bool first) {
-  const WT* W0 = static_cast<const WT*>(W.w[0]);
-  const WT* W1t = static_cast<const WT*>(W.wt[1]);  // (256, 1024)
-  const int tid = threadIdx.x;
-  float* G = S.P;  // 32 x 256 rounded cotangents of layer 0's output
-  for (int pass = 0; pass < 4; ++pass) {
-    const int k = pass * 256 + tid;
-    float acc[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    accumulate(acc, S.Q, kLdQ, 256, W1t, 0, 1024, k);
-    const float q1 = __ldg(W.p1[0] + k), q2 = W.p2[0] != nullptr ? __ldg(W.p2[0] + k) : 0.f;
-    float s1 = 0.f, s2 = 0.f, dw0 = 0.f, dw1 = 0.f, dw2 = 0.f, db = 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float gr = 0.f;
-      if (r < rows) {
-        const float* p = S.pos + r * kLd4;
-        // the forward's pre-activation (rounded), activation and factors
-        const float x = cde<kBf16>(layer0_x(p, W0, W.b[0], k));
-        float f1, f2;
-        const float a = cde<kBf16>(act_fwd<kAct>(x, q1, q2, gamma, f1, f2));
-        const float gx = act_bwd<kAct>(acc[r], a, x, cde<kBf16>(f1), cde<kBf16>(f2), q1, q2,
-                                       gamma, s1, s2);
-        db += gx;
-        gr = cde<kBf16>(gx);
-        dw0 = fmaf(p[0], gr, dw0);
-        dw1 = fmaf(p[1], gr, dw1);
-        dw2 = fmaf(p[2], gr, dw2);
+      for (int p = 0; p < 2; ++p) {
+        q1[p] = __ldg(p1 + col0 + p);
+        q2[p] = kAct == kGabor ? __ldg(p2 + col0 + p) : 0.f;
       }
-      G[r * 256 + tid] = gr;
     }
-    float fa, fb;
-    param_factors<kAct>(q1, gamma, fa, fb);
-    float* pw = part;  // dW0 (3 x 1024) | db0 (1024) | act 0 params
-    if (first) {
-      pw[k] = dw0;
-      pw[1024 + k] = dw1;
-      pw[2048 + k] = dw2;
-      pw[3072 + k] = db;
-      pw[4096 + k] = fa * s1;
-      if (kAct == kGabor) pw[5120 + k] = fb * s2;
-    } else {
-      pw[k] += dw0;
-      pw[1024 + k] += dw1;
-      pw[2048 + k] += dw2;
-      pw[3072 + k] += db;
-      pw[4096 + k] += fa * s1;
-      if (kAct == kGabor) pw[5120 + k] += fb * s2;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        float v[2] = {0.f, 0.f};
+        if (row < rows) {
+          v[0] = c[i][2 * h];
+          v[1] = c[i][2 * h + 1];
+          if (add != nullptr) {
+            const float2 ad = load_pair(add + row * GW + col0);
+            v[0] += ad.x;
+            v[1] += ad.y;
+          }
+          if constexpr (kAct >= 0) {
+            const float2 x = load_pair(xrec + row * AW + col0);
+            v[0] = act_bwd_x<kAct, kBf16>(v[0], x.x, q1[0], q2[0], gamma, s1[0], s2[0]);
+            v[1] = act_bwd_x<kAct, kBf16>(v[1], x.y, q1[1], q2[1], gamma, s1[1], s2[1]);
+          }
+          store_pair(cot + row * GW + col0, v[0], v[1]);
+        }
+        store_pair(buf + row * ld + col0, v[0], v[1]);  // rounds to the compute type
+      }
+    if constexpr (kAct >= 0) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s1[p] += __shfl_xor_sync(kFull, s1[p], off);
+          s2[p] += __shfl_xor_sync(kFull, s2[p], off);
+        }
+      if (g == 0) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float fa, fb;
+          param_factors<kAct>(q1[p], gamma, fa, fb);
+          const int k = col0 + p;
+          part1[k] = first ? fa * s1[p] : part1[k] + fa * s1[p];
+          if (kAct == kGabor) part2[k] = first ? fb * s2[p] : part2[k] + fb * s2[p];
+        }
+      }
     }
-    __syncthreads();
-    if (tid < rows * 3) {  // d pos += g_x0 W0^T over this pass's 256 columns
-      const int r = tid / 3, c = tid % 3;
-      float s = 0.f;
-      for (int kk = 0; kk < 256; ++kk)
-        s = fmaf(G[r * 256 + kk], load_w(W0, c * 1024 + pass * 256 + kk), s);
-      S.dpos[r * kLd4 + c] += s;
-    }
-    __syncthreads();
   }
-}
+};
 
-template <typename WT, bool kBf16, int kAct, typename AT>
+// Epilogue of linear 1's backward product g1 W1^T (1024 columns, layer 0's
+// outputs): per element, layer 0's pre-activation recomputed from the tile's
+// rounded position (as the forward computed it), its activation backward,
+// then over the live rows: per column the sums of d(pre-activation) (db0),
+// position x rounded d(pre-activation) (dW0) and the parameter gradients,
+// reduced over the warp's row groups by shuffles into the block's partials
+// (set on its first tile, added after); per row the thread's share of d pos =
+// rounded d(pre-activation) W0^T, kept in the caller's dp over every column.
+template <bool kBf16, int kAct>
+struct L0Epi {
+  using ET = typename Mma<kBf16>::ET;
+  const ET* pos;  // E, row stride GarfSmem::ldE
+  const ET* w0;
+  const float *b0, *p1, *p2;
+  float gamma;
+  float* part;
+  bool first;
+  int rows;
+  float (*dp)[2][3];  // [kR / 16][2][3]: the thread's rows 16 i + g + 8 h
+
+  // gabor / sarf out of line (see `GarfFwdEpi`); gauss inline
+  template <int kMT>
+  __device__ __forceinline__ void operator()(int nt, const float (&c)[kMT][4]) const {
+    if constexpr (kAct == kGabor || kAct == kSarf)
+      out_of_line(nt, c);
+    else
+      body(nt, c);
+  }
+  template <int kMT>
+  __device__ __noinline__ void out_of_line(int nt, const float (&c)[kMT][4]) const {
+    body(nt, c);
+  }
+  template <int kMT>
+  __device__ __forceinline__ void body(int nt, const float (&c)[kMT][4]) const {
+    constexpr int ldE = GarfSmem<kBf16>::ldE;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int col0 = nt * 8 + 2 * t;
+    float q1[2], q2[2], w[2][3];
+    float sdw[2][3] = {}, sdb[2] = {}, s1[2] = {}, s2[2] = {};
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      q1[p] = __ldg(p1 + col0 + p);
+      q2[p] = kAct == kGabor ? __ldg(p2 + col0 + p) : 0.f;
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) w[p][cc] = load_w(w0, cc * 1024 + col0 + p);
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * i + g + 8 * h;
+        if (row < rows) {
+          const float ps[3] = {to_f(pos[row * ldE]), to_f(pos[row * ldE + 1]),
+                               to_f(pos[row * ldE + 2])};
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const float x = cde<kBf16>(layer0_x(ps, w0, b0, col0 + p));
+            const float gx =
+                act_bwd_x<kAct, kBf16>(c[i][2 * h + p], x, q1[p], q2[p], gamma, s1[p], s2[p]);
+            sdb[p] += gx;
+            const float gr = cde<kBf16>(gx);
+#pragma unroll
+            for (int cc = 0; cc < 3; ++cc) {
+              sdw[p][cc] = fmaf(ps[cc], gr, sdw[p][cc]);
+              dp[i][h][cc] = fmaf(gr, w[p][cc], dp[i][h][cc]);
+            }
+          }
+        }
+      }
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+        for (int cc = 0; cc < 3; ++cc) sdw[p][cc] += __shfl_xor_sync(kFull, sdw[p][cc], off);
+        sdb[p] += __shfl_xor_sync(kFull, sdb[p], off);
+        s1[p] += __shfl_xor_sync(kFull, s1[p], off);
+        s2[p] += __shfl_xor_sync(kFull, s2[p], off);
+      }
+    if (g == 0) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float fa, fb;
+        param_factors<kAct>(q1[p], gamma, fa, fb);
+        const int k = col0 + p;
+        const float v[6] = {sdw[p][0], sdw[p][1], sdw[p][2], sdb[p], fa * s1[p], fb * s2[p]};
+#pragma unroll
+        for (int q = 0; q < (kAct == kGabor ? 6 : 5); ++q) {
+          float* dst = part + q * 1024 + k;  // dW0 rows 0..2 | db0 | p1 | p2 (gabor)
+          *dst = first ? v[q] : *dst + v[q];
+        }
+      }
+    }
+  }
+};
+
+template <bool kBf16, int kAct>
 __global__ void __launch_bounds__(kThreads, 1)
 garf_train_kernel(const float* __restrict__ origs, const float* __restrict__ dirs,
                   const float* __restrict__ t_start, const float* __restrict__ t_end,
-                  const float* __restrict__ targets, Weights W, int S_, float gamma,
-                  float density_scale, float grad_scale, AT* act, float* cot, float* aux,
-                  float* ray_part, float* __restrict__ rgb_out,
-                  float* __restrict__ weights_out, float* __restrict__ d_origs,
-                  float* __restrict__ d_dirs) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem S(smem);
-  using Lay = ActLayout<kAct>;
+                  const float* __restrict__ targets, GarfWeights W, int n_rays, int S,
+                  float gamma, float density_scale, float grad_scale,
+                  typename Mma<kBf16>::ET* act, float* cot, float* aux, float* block_part,
+                  float* __restrict__ rgb_out, float* __restrict__ weights_out,
+                  float* __restrict__ d_origs, float* __restrict__ d_dirs) {
+  using M = Mma<kBf16>;
+  using ET = typename M::ET;
+  using L = GarfSmem<kBf16>;
+  using Lay = ActLayout;
+  constexpr int kR = L::kR, kMT = kR / 16, kComp = L::kComp, kF = kFlushK<kBf16>;
+  constexpr int s16 = 16 / M::kK;  // k-steps of a 16-column part
+  extern __shared__ __align__(16) unsigned char smem[];
+  const GarfBufs<kBf16> s(smem);
   const size_t AW = Lay::total(), GW = kCotWidth;
-  const int ray = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t ray_row = static_cast<size_t>(ray) * S_;
-  float* part = ray_part + static_cast<size_t>(ray) * ray_part_width<kAct>();
-  auto part1 = [&](int i) { return part + aofs<kAct>(i); };
-  auto part2 = [&](int i) {
-    return kAct == kGabor ? part + aofs<kAct>(i) + Lay::width(i) : nullptr;
-  };
-  float o[3], d[3];
+  const BlockRows br(n_rays, S, kR);
+  float* part = block_part + static_cast<size_t>(blockIdx.x) * block_part_width<kAct>();
+  s.zero();
+
+  // ---- forward, tile by tile; one warp composites each ray ----
+  for (int tb = 0; tb < br.rows; tb += kR) {
+    const int rows = min(kR, br.rows - tb);
+    const size_t row0 = br.row0 + tb;
+    ET* a0 = act + row0 * AW;
+    load_tile<kBf16>(origs, dirs, t_start, t_end, br, S, tb, rows, s);
+    for (int idx = tid; idx < rows * 6; idx += blockDim.x) {
+      const int r = idx / 6, c = idx % 6;
+      a0[r * AW + c] = c < 3 ? s.E[r * L::ldE + c] : s.D[r * L::ldE + c - 3];
+    }
+    forward_tile<kBf16, kAct>(W, gamma, s, rows, a0, AW);
+
+    const int j_first = tb / S, j_last = (tb + rows - 1) / S;
+    for (int j = j_first + warp; j <= j_last; j += kWarps) {
+      const int lo = max(tb, j * S) - tb, hi = min(tb + rows, (j + 1) * S) - tb;
+      float* sj = s.comp + j * kComp;
+      float carry = sj[0], ar = 0.f, ag = 0.f, ab = 0.f;
+      for (int c0 = lo; c0 < hi; c0 += 32) {
+        const int r = c0 + lane;
+        const bool live = r < hi;
+        float raw = 0.f, blk = 0.f, k0 = 0.f, k1 = 0.f, k2 = 0.f;
+        if (live) {
+          raw = s.dens[r];
+          blk = -softplus8(raw - 1.f) * s.dist[r] * density_scale;
+          k0 = 1.f / (1.f + expf(-s.logits[r * 3 + 0]));
+          k1 = 1.f / (1.f + expf(-s.logits[r * 3 + 1]));
+          k2 = 1.f / (1.f + expf(-s.logits[r * 3 + 2]));
+        }
+        const float incl = warp_scan(blk, lane);
+        float excl = __shfl_up_sync(kFull, incl, 1);
+        if (lane == 0) excl = 0.f;
+        const float T = expf(carry + excl);
+        const float w = T * (1.f - expf(blk));
+        if (live) {
+          ar += w * k0;
+          ag += w * k1;
+          ab += w * k2;
+          float* x = aux + (row0 + r) * kAux;
+          x[0] = raw; x[1] = k0; x[2] = k1; x[3] = k2; x[4] = T; x[5] = w;
+          weights_out[row0 + r] = w;
+        }
+        carry += __shfl_sync(kFull, incl, 31);
+      }
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    o[c] = __ldg(origs + ray * 3 + c);
-    d[c] = __ldg(dirs + ray * 3 + c);
+      for (int off = 16; off > 0; off >>= 1) {
+        ar += __shfl_xor_sync(kFull, ar, off);
+        ag += __shfl_xor_sync(kFull, ag, off);
+        ab += __shfl_xor_sync(kFull, ab, off);
+      }
+      if (lane == 0) {
+        sj[0] = carry;
+        sj[1] += ar;
+        sj[2] += ag;
+        sj[3] += ab;
+        if (tb + hi == (j + 1) * S)
+          for (int k = 0; k < 3; ++k) rgb_out[(br.ray0 + j) * 3 + k] = sj[1 + k];
+      }
+    }
+    __syncthreads();  // the next tile overwrites tq, dist, dens, logits and the tiles
   }
 
-  // ---- forward, chunk by chunk; compositing state lives in warp 0 ----
-  float carry = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  for (int base = 0; base < S_; base += kRows) {
-    const int rows = min(kRows, S_ - base);
-    const size_t row0 = ray_row + base;
-    AT* rb = act + row0 * AW;
-    load_chunk<kBf16>(t_start, t_end, row0, rows, o, d, S);
-    for (int idx = tid; idx < rows * 3; idx += blockDim.x) {
-      const int r = idx / 3, c = idx % 3;
-      store_act(rb + r * AW + c, S.pos[r * kLd4 + c]);
-      store_act(rb + r * AW + 3 + c, S.dir[r * kLd4 + c]);
-    }
-    forward_chunk<WT, kBf16, kAct, AT>(W, gamma, S, rows, rb, AW);
-    if (warp == 0) {
-      float raw = 0.f, blk = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-      if (lane < rows) {
-        raw = S.Q[lane * kLdQ + 128];
-        blk = -softplus8(raw - 1.f) * S.dist[lane] * density_scale;
-        c0 = 1.f / (1.f + expf(-S.logits[lane * kLd4 + 0]));
-        c1 = 1.f / (1.f + expf(-S.logits[lane * kLd4 + 1]));
-        c2 = 1.f / (1.f + expf(-S.logits[lane * kLd4 + 2]));
-      }
-      const float incl = warp_scan(blk, lane);
-      float excl = __shfl_up_sync(kFull, incl, 1);
-      if (lane == 0) excl = 0.f;
-      const float T = expf(carry + excl);
-      const float w = T * (1.f - expf(blk));
-      if (lane < rows) {
-        acc_r += w * c0;
-        acc_g += w * c1;
-        acc_b += w * c2;
-        float* x = aux + (row0 + lane) * kAux;
-        x[0] = raw; x[1] = c0; x[2] = c1; x[3] = c2; x[4] = T; x[5] = w;
-        weights_out[row0 + lane] = w;
-      }
-      carry += __shfl_sync(kFull, incl, 31);
-    }
-    __syncthreads();  // the next chunk overwrites the buffers
-  }
-
-  // ---- loss gradient and compositing backward (warp 0) ----
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc_r += __shfl_xor_sync(kFull, acc_r, off);
-      acc_g += __shfl_xor_sync(kFull, acc_g, off);
-      acc_b += __shfl_xor_sync(kFull, acc_b, off);
-    }
-    if (lane == 0) {
-      rgb_out[ray * 3 + 0] = acc_r;
-      rgb_out[ray * 3 + 1] = acc_g;
-      rgb_out[ray * 3 + 2] = acc_b;
-    }
-    const float g0 = grad_scale * (acc_r - __ldg(targets + ray * 3 + 0));
-    const float g1 = grad_scale * (acc_g - __ldg(targets + ray * 3 + 1));
-    const float g2 = grad_scale * (acc_b - __ldg(targets + ray * 3 + 2));
+  // ---- loss gradient and compositing backward, one warp a ray ----
+  for (int j = warp; j < br.nr; j += kWarps) {
+    const int ray = br.ray0 + j;
+    const size_t ray_row = static_cast<size_t>(ray) * S;
+    const float g0 = grad_scale * (s.comp[j * kComp + 1] - __ldg(targets + ray * 3 + 0));
+    const float g1 = grad_scale * (s.comp[j * kComp + 2] - __ldg(targets + ray * 3 + 1));
+    const float g2 = grad_scale * (s.comp[j * kComp + 3] - __ldg(targets + ray * 3 + 2));
     float tail = 0.f;  // sum of g_w * w over the samples after this chunk
-    for (int base = ((S_ - 1) / kRows) * kRows; base >= 0; base -= kRows) {
+    for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
       const int i = base + lane;
-      const bool live = i < S_;
+      const bool live = i < S;
       const size_t row = ray_row + i;
       float raw = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, T = 0.f, w = 0.f, dt = 0.f;
       if (live) {
@@ -299,125 +394,152 @@ garf_train_kernel(const float* __restrict__ origs, const float* __restrict__ dir
       tail += __shfl_sync(kFull, sfx, 0);
     }
   }
-  __syncthreads();  // warp 0's cotangents are visible to the block
+  __syncthreads();  // the seeded cotangents are visible to the block
 
-  // ---- the net's backward, chunk by chunk ----
-  float geo_o = 0.f, geo_d = 0.f;  // this thread's (row, coordinate) partials
-  for (int base = 0; base < S_; base += kRows) {
-    const int rows = min(kRows, S_ - base);
-    const size_t row0 = ray_row + base;
-    const bool first = base == 0;
-    const AT* rb = act + row0 * AW;
-    float* cb = cot + row0 * GW;
-    load_chunk<kBf16>(t_start, t_end, row0, rows, o, d, S);
-    for (int idx = tid; idx < kRows * 3; idx += blockDim.x) {
-      const int r = idx / 3, c = idx % 3;
-      S.logits[r * kLd4 + c] = r < rows ? cde<kBf16>(cb[r * GW + gofs(9) + c]) : 0.f;
+  // ---- the net's backward, tile by tile: g <- act_bwd(g W^T) ----
+  for (int tb = 0; tb < br.rows; tb += kR) {
+    const int rows = min(kR, br.rows - tb);
+    const size_t row0 = br.row0 + tb;
+    const bool first = tb == 0;
+    const ET* a0 = act + row0 * AW;
+    float* c0 = cot + row0 * GW;
+    // through activation layer i (1..7), which follows linear i (linear 8 for i = 7)
+    auto epi = [&](int i, int k1, ET* out, int ld, float* enc, int k2, const float* add) {
+      return GarfBwdEpi<kBf16, kAct>{
+          k1, out, ld, c0 + gofs(i < 7 ? i : 8), add, a0 + Lay::rec(i) + Lay::width(i), AW,
+          GW, W.p1[i], W.p2[i], gamma, part + aofs<kAct>(i),
+          part + aofs<kAct>(i) + Lay::width(i), first, enc, 4, k2, rows};
+    };
+    load_tile<kBf16>(origs, dirs, t_start, t_end, br, S, tb, rows, s);
+    // the logits' cotangent, K zero-padded to 16
+    for (int idx = tid; idx < kR * 16; idx += blockDim.x) {
+      const int r = idx >> 4, c = idx & 15;
+      store_act(s.Q + r * L::ldQ + c, c < 3 && r < rows ? c0[r * GW + gofs(9) + c] : 0.f);
     }
     __syncthreads();
     // colour head 256 -> 3, through the colour activation (layer 7)
-    bwd_dense<WT, kBf16, kAct, AT>(S.logits, kLd4, 3, W.wt[9], 256, 0, nullptr, 0,
-                                   rb + Lay::rec(7), AW, W.p1[7], W.p2[7], gamma,
-                                   cb + gofs(8), GW, S.P, kLdP, nullptr, 0, part1(7), part2(7),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.Q, L::ldQ, s16, nullptr, 0, 0, W.bwd[9], s.ring, 256 / 8,
+                         epi(7, 256, s.P, L::ldP, nullptr, 0, nullptr));
     __syncthreads();
     // colour input [ci | dir]: the ci part is the cotangent of z2[:, :128]
-    // (rounded into Q for the next matmul, fp32 into Z for z1's skip); the dir
-    // part goes to S.ddir
-    bwd_dense<WT, kBf16, -1, AT>(S.P, kLdP, 256, W.wt[8], 128, 3, nullptr, 0, nullptr, AW,
-                                 nullptr, nullptr, gamma, cb + gofs(7), GW, S.Q, kLdQ, S.Z,
-                                 kLdZ, nullptr, nullptr, first, S.ddir, kLd4, rows);
-    for (int r = tid; r < rows; r += blockDim.x)
-      S.Q[r * kLdQ + 128] = cde<kBf16>(cb[r * GW + gofs(7) + 128]);  // the density column
+    // (no activation; z1's share is added below), the dir part goes to ddir
+    tile_gemm<kBf16, kR, kF>(s.P, L::ldP, 256 / M::kK, nullptr, 0, 0, W.bwd[8], s.ring, 144 / 8,
+                         GarfBwdEpi<kBf16, -1>{128, s.Q, L::ldQ, c0 + gofs(7), nullptr,
+                                               nullptr, AW, GW, nullptr, nullptr, gamma,
+                                               nullptr, nullptr, first, s.ddir, 4, 3, rows});
+    // the density column's cotangent at column 128, zeros up to 144
+    for (int idx = tid; idx < kR * 16; idx += blockDim.x) {
+      const int r = idx >> 4, c = idx & 15;
+      store_act(s.Q + r * L::ldQ + 128 + c,
+                c == 0 && r < rows ? c0[r * GW + gofs(7) + 128] : 0.f);
+    }
     __syncthreads();
-    bwd_dense<WT, kBf16, kAct, AT>(S.Q, kLdQ, 129, W.wt[7], 128, 0, nullptr, 0,
-                                   rb + Lay::rec(6), AW, W.p1[6], W.p2[6], gamma,
-                                   cb + gofs(6), GW, S.P, kLdP, nullptr, 0, part1(6), part2(6),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.Q, L::ldQ, 144 / M::kK, nullptr, 0, 0, W.bwd[7], s.ring, 128 / 8,
+                         epi(6, 128, s.P, L::ldP, nullptr, 0, nullptr));
     __syncthreads();
-    bwd_dense<WT, kBf16, kAct, AT>(S.P, kLdP, 128, W.wt[6], 256, 0, nullptr, 0,
-                                   rb + Lay::rec(5), AW, W.p1[5], W.p2[5], gamma,
-                                   cb + gofs(5), GW, S.Q, kLdQ, nullptr, 0, part1(5), part2(5),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.P, L::ldP, 128 / M::kK, nullptr, 0, 0, W.bwd[6], s.ring, 256 / 8,
+                         epi(5, 256, s.Q, L::ldQ, nullptr, 0, nullptr));
     __syncthreads();
-    bwd_dense<WT, kBf16, kAct, AT>(S.Q, kLdQ, 256, W.wt[5], 512, 0, nullptr, 0,
-                                   rb + Lay::rec(4), AW, W.p1[4], W.p2[4], gamma,
-                                   cb + gofs(4), GW, S.P, kLdP, nullptr, 0, part1(4), part2(4),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.Q, L::ldQ, 256 / M::kK, nullptr, 0, 0, W.bwd[5], s.ring, 512 / 8,
+                         epi(4, 512, s.P, L::ldP, nullptr, 0, nullptr));
     __syncthreads();
-    // density-2 input [z1 | pos]: z1 also feeds the colour input (+ g_ci), then
-    // through z1's activation (layer 3); the pos part goes to S.dpos
-    bwd_dense<WT, kBf16, kAct, AT>(S.P, kLdP, 512, W.wt[4], 128, 3, S.Z, kLdZ,
-                                   rb + Lay::rec(3), AW, W.p1[3], W.p2[3], gamma,
-                                   cb + gofs(3), GW, S.Q, kLdQ, nullptr, 0, part1(3), part2(3),
-                                   first, S.dpos, kLd4, rows);
+    // density-2 input [z1 | pos]: z1 also fed the colour input (+ g_ci, the
+    // fp32 cotangent stored above), then z1's activation (layer 3); the pos
+    // part goes to dpos
+    tile_gemm<kBf16, kR, kF>(s.P, L::ldP, 512 / M::kK, nullptr, 0, 0, W.bwd[4], s.ring, 144 / 8,
+                         epi(3, 128, s.Q, L::ldQ, s.dpos, 3, c0 + gofs(7)));
     __syncthreads();
-    bwd_dense<WT, kBf16, kAct, AT>(S.Q, kLdQ, 128, W.wt[3], 128, 0, nullptr, 0,
-                                   rb + Lay::rec(2), AW, W.p1[2], W.p2[2], gamma,
-                                   cb + gofs(2), GW, S.P, kLdP, nullptr, 0, part1(2), part2(2),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.Q, L::ldQ, 128 / M::kK, nullptr, 0, 0, W.bwd[3], s.ring, 128 / 8,
+                         epi(2, 128, s.P, L::ldP, nullptr, 0, nullptr));
     __syncthreads();
-    bwd_dense<WT, kBf16, kAct, AT>(S.P, kLdP, 128, W.wt[2], 256, 0, nullptr, 0,
-                                   rb + Lay::rec(1), AW, W.p1[1], W.p2[1], gamma,
-                                   cb + gofs(1), GW, S.Q, kLdQ, nullptr, 0, part1(1), part2(1),
-                                   first, nullptr, 0, rows);
+    tile_gemm<kBf16, kR, kF>(s.P, L::ldP, 128 / M::kK, nullptr, 0, 0, W.bwd[2], s.ring, 256 / 8,
+                         epi(1, 256, s.Q, L::ldQ, nullptr, 0, nullptr));
     __syncthreads();
-    bwd_layer0<WT, kBf16, kAct>(W, gamma, S, rows, part, first);
-    // d_origs = sum_s d_pos, d_dirs = sum_s (t_q d_pos + d_dir)
-    if (tid < rows * 3) {
+    // linear 1 into layer 0: 1024 columns, 4 passes of the warps
+    float dp[kMT][2][3] = {};
+    tile_gemm<kBf16, kR, kF>(
+        s.Q, L::ldQ, 256 / M::kK, nullptr, 0, 0, W.bwd[1], s.ring, 1024 / 8,
+        L0Epi<kBf16, kAct>{s.E, static_cast<const ET*>(W.w0), W.b[0], W.p1[0], W.p2[0], gamma,
+                           part, first, rows, dp});
+    {  // d pos: the warp's row sums over its columns, then over the warps in order
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) {
+            float v = dp[i][h][cc];
+            v += __shfl_xor_sync(kFull, v, 1);
+            v += __shfl_xor_sync(kFull, v, 2);
+            if (t == 0) s.red[(warp * kR + 16 * i + g + 8 * h) * 3 + cc] = v;
+          }
+    }
+    __syncthreads();
+    if (tid < rows * 3) {  // d_origs = sum_s d_pos, d_dirs = sum_s (t_q d_pos + d_dir)
       const int r = tid / 3, c = tid % 3;
-      const float dp = S.dpos[r * kLd4 + c];
-      geo_o += dp;
-      geo_d += S.tq[r] * dp + S.ddir[r * kLd4 + c];
+      float sum = s.dpos[r * 4 + c];
+      for (int wp = 0; wp < kWarps; ++wp) sum += s.red[(wp * kR + r) * 3 + c];
+      s.geo[r * 6 + c] = sum;
+      s.geo[r * 6 + 3 + c] = s.tq[r] * sum + s.ddir[r * 4 + c];
     }
-    __syncthreads();  // the next chunk overwrites the buffers
-  }
-  if (tid < kGradRows) {
-    S.red[tid] = geo_o;
-    S.red[kGradRows + tid] = geo_d;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float so = 0.f, sd = 0.f;
-    for (int t = tid; t < kGradRows; t += 3) {
-      so += S.red[t];
-      sd += S.red[kGradRows + t];
+    __syncthreads();
+    // per-ray sums over the tile's rows, in row order
+    const int j_first = tb / S, j_last = (tb + rows - 1) / S;
+    for (int idx = tid; idx < (j_last - j_first + 1) * 6; idx += blockDim.x) {
+      const int j = j_first + idx / 6, q = idx % 6;
+      const int lo = max(tb, j * S) - tb, hi = min(tb + rows, (j + 1) * S) - tb;
+      float sum = 0.f;
+      for (int r = lo; r < hi; ++r) sum += s.geo[r * 6 + q];
+      s.comp[j * kComp + 4 + q] += sum;
     }
-    d_origs[ray * 3 + tid] = so;
-    d_dirs[ray * 3 + tid] = sd;
+    __syncthreads();  // the next tile overwrites tq, geo and the tiles
+  }
+  for (int idx = tid; idx < br.nr * 6; idx += blockDim.x) {
+    const int j = idx / 6, q = idx % 6;
+    float* dst = q < 3 ? d_origs : d_dirs;
+    dst[(br.ray0 + j) * 3 + q % 3] = s.comp[j * kComp + 4 + q];
   }
 }
 
 // ---- phase B: dW = A^T G, db = sum_rows G for linear layers 1..9 ----
 
 // Linear 1's input is layer 0's activation, recomputed from the stored
-// position while loading the tile; the other layers' inputs are stored.
-template <typename WT, typename AT, bool kBf16, int kAct>
+// position while loading the tile; the other layers' inputs are stored. bf16
+// on the tensor cores (`dw_tile_tc`); fp32 on the CUDA cores (`dw_tile`): a
+// 3xTF32 variant of the tensor-core tile measured slower and, summing a
+// split's rows in the tensor cores' truncating accumulator, missed the fp32
+// tolerance on two dW (PERF.md).
+template <bool kBf16, int kAct>
 __global__ void __launch_bounds__(256)
-dw_partial_kernel(const AT* __restrict__ act, const float* __restrict__ cot, GemmPlan plan,
-                  Weights W, float gamma, float* __restrict__ part) {
-  __shared__ __align__(16) DwSmem sm;
+dw_partial_kernel(const typename Mma<kBf16>::ET* __restrict__ act,
+                  const float* __restrict__ cot, GemmPlan plan, GarfWeights W, float gamma,
+                  float* __restrict__ part) {
+  using ET = typename Mma<kBf16>::ET;
   const DwTile t(plan);
-  if (t.li != 0) {
-    dw_tile_stored<kBf16>(act, cot, plan, t, sm, part);
-    return;
+  const int ka = t.k0 + static_cast<int>(threadIdx.x) % kTile;  // < 1024: whole k-tiles
+  const ET* W0 = static_cast<const ET*>(W.w0);
+  const bool l1 = t.li == 0;
+  const float q1 = l1 ? __ldg(W.p1[0] + ka) : 0.f;
+  const float q2 = l1 && kAct == kGabor ? __ldg(W.p2[0] + ka) : 0.f;
+  auto layer0 = [&](long long row) {
+    const ET* pr = act + row * plan.AW;
+    const float p[3] = {load_act(pr), load_act(pr + 1), load_act(pr + 2)};
+    return cde<kBf16>(act_fwd<kAct>(cde<kBf16>(layer0_x(p, W0, W.b[0], ka)), q1, q2, gamma));
+  };
+  if constexpr (kBf16) {
+    __shared__ __align__(16) DwTcSmem sm;
+    if (l1)
+      dw_tile_tc(plan, t, cot, layer0, sm, part);
+    else
+      dw_tile_stored_tc(act, cot, plan, t, sm, part);
+  } else {
+    __shared__ __align__(16) DwSmem sm;
+    if (l1)
+      dw_tile<false>(plan, t, cot, layer0, sm, part);
+    else
+      dw_tile_stored<false>(act, cot, plan, t, sm, part);
   }
-  const int ka = t.k0 + static_cast<int>(threadIdx.x) % kTile;
-  const bool live_k = ka < 1024;
-  const WT* W0 = static_cast<const WT*>(W.w[0]);
-  const float q1 = live_k ? __ldg(W.p1[0] + ka) : 0.f;
-  const float q2 = live_k && W.p2[0] != nullptr ? __ldg(W.p2[0] + ka) : 0.f;
-  dw_tile<kBf16>(
-      plan, t, cot,
-      [&](long long row) {
-        if (!live_k) return 0.f;
-        const AT* pr = act + row * plan.AW;
-        const float p[3] = {load_act(pr), load_act(pr + 1), load_act(pr + 2)};
-        float f1, f2;
-        return cde<kBf16>(
-            act_fwd<kAct>(cde<kBf16>(layer0_x(p, W0, W.b[0], ka)), q1, q2, gamma, f1, f2));
-      },
-      sm, part);
 }
 
 __host__ __device__ constexpr int lin_in(int l) {
@@ -429,9 +551,8 @@ __host__ __device__ constexpr int lin_out(int l) {
        : l == 5 ? 256 : l == 6 ? 128 : l == 7 ? 129 : l == 8 ? 256 : 3;
 }
 
-template <int kAct>
 GemmPlan make_plan(long long rows, int splits) {
-  using Lay = ActLayout<kAct>;
+  using Lay = ActLayout;
   GemmPlan plan(Lay::total(), kCotWidth, rows, splits);
   for (int l = 1; l < kLayers; ++l) {
     if (l == 4) {
@@ -451,29 +572,34 @@ GemmPlan make_plan(long long rows, int splits) {
 
 constexpr int kW0 = 3 * 1024;  // layer 0's dW
 
-template <typename WT, bool kBf16, int kAct, typename AT>
-cudaError_t launch(const TrainArgs& a) {
-  const int bytes = kSmemTotal * static_cast<int>(sizeof(float));
-  auto kernel = garf_train_kernel<WT, kBf16, kAct, AT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <bool kBf16, int kAct>
+cudaError_t launch_train(const TrainArgs& a) {
+  using L = GarfSmem<kBf16>;
+  using ET = typename Mma<kBf16>::ET;
+  static_assert(L::kBytes <= kMaxSmemBytes, "the train tile must fit in shared memory");
+  auto kernel = garf_train_kernel<kBf16, kAct>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return err;
-  kernel<<<a.n_rays, kThreads, bytes, a.stream>>>(
-      a.origs, a.dirs, a.t_start, a.t_end, a.targets, a.W, a.S, a.gamma, a.density_scale,
-      a.grad_scale, static_cast<AT*>(a.act), a.cot, a.aux, a.ray_part, a.rgb_out,
-      a.weights_out, a.d_origs, a.d_dirs);
+  const int rpb = rays_per_block(a.S, L::kR);
+  const int blocks = (a.n_rays + rpb - 1) / rpb;
+  ET* act = static_cast<ET*>(a.act);
+  kernel<<<blocks, kThreads, L::kBytes, a.stream>>>(
+      a.origs, a.dirs, a.t_start, a.t_end, a.targets, a.W, a.n_rays, a.S, a.gamma,
+      a.density_scale, a.grad_scale, act, a.cot, a.aux, a.block_part, a.rgb_out, a.weights_out,
+      a.d_origs, a.d_dirs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const GemmPlan plan = make_plan<kAct>(static_cast<long long>(a.n_rays) * a.S, a.splits);
+  const GemmPlan plan = make_plan(static_cast<long long>(a.n_rays) * a.S, a.splits);
   dim3 grid(plan.tiles, a.splits);
-  dw_partial_kernel<WT, AT, kBf16, kAct><<<grid, 256, 0, a.stream>>>(
-      static_cast<const AT*>(a.act), a.cot, plan, a.W, a.gamma, a.part);
+  dw_partial_kernel<kBf16, kAct><<<grid, 256, 0, a.stream>>>(act, a.cot, plan, a.W, a.gamma,
+                                                            a.part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   // the flat output: every dW (in, out) in layer order, every db, then the
-  // activation parameters as the ray partials hold them
+  // activation parameters as the block partials hold them
   const long long wtot = kW0 + plan.wtot, btot = 1024 + plan.btot;
   Segments by_split{};  // phase B: layers 1..9
   by_split.n = 2;
@@ -483,20 +609,19 @@ cudaError_t launch(const TrainArgs& a) {
   by_split.dst[1] = wtot + 1024;
   err = reduce(a.part, a.splits, by_split, a.grads, a.stream);
   if (err != cudaSuccess) return err;
-  Segments by_ray{};  // layer 0's dW and db, every activation parameter
-  by_ray.n = 3;
-  by_ray.begin[1] = kW0;
-  by_ray.begin[2] = kW0 + 1024;
-  by_ray.begin[3] = ray_part_width<kAct>();
-  by_ray.dst[1] = wtot;
-  by_ray.dst[2] = wtot + btot;
-  return reduce(a.ray_part, a.n_rays, by_ray, a.grads, a.stream);
+  Segments by_block{};  // layer 0's dW and db, every activation parameter
+  by_block.n = 3;
+  by_block.begin[1] = kW0;
+  by_block.begin[2] = kW0 + 1024;
+  by_block.begin[3] = block_part_width<kAct>();
+  by_block.dst[1] = wtot;
+  by_block.dst[2] = wtot + btot;
+  return reduce(a.block_part, blocks, by_block, a.grads, a.stream);
 }
 
 template <int kAct>
 cudaError_t train_family(const TrainArgs& a, bool bf16) {
-  return bf16 ? launch<__nv_bfloat16, true, kAct, __nv_bfloat16>(a)
-              : launch<float, false, kAct, float>(a);
+  return bf16 ? launch_train<true, kAct>(a) : launch_train<false, kAct>(a);
 }
 
 }  // namespace

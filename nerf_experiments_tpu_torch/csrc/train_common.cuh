@@ -4,8 +4,9 @@
 // cotangent workspace that phase A wrote. A tiled GEMM split over the rows
 // into fixed partials; `reduce` adds the partials in a fixed order. No
 // atomics: two launches give bitwise-equal gradients. Two tile bodies:
-// `dw_tile` on the CUDA cores (the GARF train kernel and the fused MLP chain)
-// and `dw_tile_tc` on the tensor cores (the flagship train kernel, bf16).
+// `dw_tile` on the CUDA cores (the fp32 routes of the flagship and GARF train
+// kernels, the fused MLP chain) and `dw_tile_tc` on the tensor cores (the
+// flagship and GARF train kernels in bf16).
 #pragma once
 
 #include "flagship_common.cuh"

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -56,14 +57,16 @@ SIGNATURES = {
     # d_origs, d_dirs, weights_out (nullable), stream
     "netpu_flagship_train": [_P] * 9 + [_I] * 10 + [_F] * 5 + [_P] * 4 + [_I, _I, _P, _I]
                             + [_P] * 6,
-    # origs, dirs, t_start, t_end, w_ptrs, b_ptrs, p1_ptrs, p2_ptrs, activation,
-    # bf16, n_rays, S, gamma, density_scale, out, stream
-    "netpu_garf_render": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P] * 2,
-    # origs, dirs, t_start, t_end, targets, w_ptrs, b_ptrs, wt_ptrs, p1_ptrs,
-    # p2_ptrs, activation, bf16, n_rays, S, gamma, density_scale, grad_scale,
-    # act, cot, aux, ray_part, act_width, cot_width, part_width, part, splits,
-    # grads, rgb_out, weights_out, d_origs, d_dirs, stream
-    "netpu_garf_train": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P] * 4 + [_I] * 3
+    # origs, dirs, t_start, t_end, wf_ptrs, b_ptrs, w0, w_density, p1_ptrs,
+    # p2_ptrs, activation, bf16, tile_rows, n_rays, S, gamma, density_scale,
+    # out, stream
+    "netpu_garf_render": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P] * 2,
+    # origs, dirs, t_start, t_end, targets, wf_ptrs, wb_ptrs, b_ptrs, w0,
+    # w_density, p1_ptrs, p2_ptrs, activation, bf16, tile_rows, n_rays, S,
+    # gamma, density_scale, grad_scale, act, cot, aux, block_part, act_width,
+    # cot_width, part_width, part, splits, grads, rgb_out, weights_out,
+    # d_origs, d_dirs, stream
+    "netpu_garf_train": [_P] * 12 + [_I] * 5 + [_F] * 3 + [_P] * 4 + [_I] * 3
                         + [_P, _I] + [_P] * 6,
     # table, x, out, level_info (host), n_levels, table_size, n_features, dim,
     # n, additive, bf16, stream
@@ -121,7 +124,19 @@ def build() -> BuildResult:
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for f, o in zip(cu, objs)]
-    logs = [f"== {f.name}\n{p.communicate()[0]}" for f, p in zip(cu, procs)]
+    # each compiler's output and wall time, read by a thread a process
+    outputs, ends = {}, {}
+
+    def wait(i):
+        outputs[i] = procs[i].communicate()[0]
+        ends[i] = time.perf_counter()
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    logs = [f"== {f.name} ({ends[i] - t0:.1f} s)\n{outputs[i]}" for i, f in enumerate(cu)]
     failed = [f.name for f, p in zip(cu, procs) if p.returncode != 0]
     if not failed:
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],

@@ -179,11 +179,14 @@ def _layer_parts(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str):
+def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str,
+               first: int = 0):
     """Where every packed element comes from: an index into the layers'
     weights (in, out) flattened in layer order with one zero after them (fp32:
     their TF32 hi parts, then the lo parts, each so), and per packed operand
-    its (offset, shape) in the result. Built once per layout and device."""
+    of layers first.. its (offset, shape) in the result (the layers before
+    `first` run on the CUDA cores and are not packed). Built once per layout
+    and device."""
     offsets, n_src = [], 0
     for parts, out in layer_parts:
         offsets.append(n_src)
@@ -202,6 +205,8 @@ def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str):
         at += order.numel()
 
     for i, ((parts, out), off) in enumerate(zip(layer_parts, offsets)):
+        if i < first:
+            continue
         w = torch.arange(off, off + sum(parts) * out).view(sum(parts), out)
         n_fwd = out - 1 if i == last else out  # the density column goes apart
         add(w[:, :n_fwd], parts, (n_fwd,), fwd)
@@ -223,9 +228,23 @@ def packed_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev,
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
     last = 2 * cfg.n_hidden + 1  # the last segment layer: D hidden columns + density
-    index, fwd_at, bwd_at = _pack_plan(tuple(_layer_parts(cfg, D, C)), last, bf16, backward,
-                                       str(torch.device(dev)))
-    ws = [l.w.detach().to(dev, torch.float32).reshape(-1) for l in layers]
+    fwd, bwd = pack_layers([l.w for l in layers], _layer_parts(cfg, D, C), last, bf16,
+                           backward, dev)
+    biases = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
+    w_density = layers[last].w.detach()[:, D].to(
+        dev, torch.bfloat16 if bf16 else torch.float32).contiguous()
+    return fwd, bwd, biases, w_density
+
+
+def pack_layers(weights, layer_parts, last: int, bf16: bool, backward: bool, dev,
+                first: int = 0):
+    """Every layer's forward B (W, without the density column of layer
+    `last`) and with `backward` its backward B (W^T), for layers first..,
+    each as `pack_b` packs it, gathered in one call from the weights
+    flattened in layer order by `_pack_plan`. Returns (fwd, bwd or None)."""
+    index, fwd_at, bwd_at = _pack_plan(tuple(layer_parts), last, bf16, backward,
+                                       str(torch.device(dev)), first)
+    ws = [w.detach().to(dev, torch.float32).reshape(-1) for w in weights]
     flat = torch.cat(ws + [ws[0].new_zeros(1)])
     if bf16:
         src = flat.to(torch.bfloat16)
@@ -234,10 +253,7 @@ def packed_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev,
         src = torch.cat([hi, tf32_round(flat - hi)])
     packed = src[index]
     views = lambda at: [packed[o:o + math.prod(shape)].view(shape) for o, shape in at]
-    biases = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
-    w_density = layers[last].w.detach()[:, D].to(
-        dev, torch.bfloat16 if bf16 else torch.float32).contiguous()
-    return views(fwd_at), (views(bwd_at) if backward else None), biases, w_density
+    return views(fwd_at), (views(bwd_at) if backward else None)
 
 
 # The render kernel's last packed weights, by the parameters they came from:
@@ -246,18 +262,25 @@ _render_pack: dict = {}
 
 
 def render_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev):
-    """`packed_weights(params, cfg, dev)`, packed again only when a layer's
-    tensor, storage or version (bumped by every in-place write: optimizer
-    steps, `copy_`, `load_state_dict`) changed since the last call. The entry
-    holds the tensors, so their ids cannot pass to others."""
+    """`packed_weights(params, cfg, dev)`, kept across calls by
+    `cached_packs`."""
     leaves = [t for l in _layers(params) for t in (l.w, l.b)]
-    key = (tuple((id(t), t.data_ptr(), t._version) for t in leaves), is_bf16(cfg),
-           str(torch.device(dev)))
-    hit = _render_pack.get("last")
+    return cached_packs(_render_pack, leaves, (is_bf16(cfg), str(torch.device(dev))),
+                        lambda: packed_weights(params, cfg, dev))
+
+
+def cached_packs(cache: dict, leaves, extra, pack):
+    """`pack()`, computed again only when a tensor of `leaves` (its id,
+    storage or version: bumped by every in-place write, as optimizer steps,
+    `copy_` and `load_state_dict` do) or `extra` changed since the last call
+    with this cache. The entry holds the tensors, so their ids cannot pass to
+    others."""
+    key = (tuple((id(t), t.data_ptr(), t._version) for t in leaves), extra)
+    hit = cache.get("last")
     if hit is not None and hit[0] == key:
         return hit[2]
-    packed = packed_weights(params, cfg, dev)
-    _render_pack["last"] = (key, leaves, packed)
+    packed = pack()
+    cache["last"] = (key, leaves, packed)
     return packed
 
 

@@ -81,11 +81,14 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_kernel_sources_and_entry_points():
     cu, headers = cuda_build._sources()
     assert {f.name for f in cu} >= {"render.cu", "flagship_render.cu", "flagship_train.cu",
-                                    "garf_render.cu", "garf_train.cu", "garf_train_gauss.cu",
+                                    "garf_render.cu", "garf_render_gauss.cu",
+                                    "garf_render_gabor.cu", "garf_render_sarf.cu",
+                                    "garf_train.cu", "garf_train_gauss.cu",
                                     "garf_train_gabor.cu", "garf_train_sarf.cu", "hashgrid.cu",
                                     "fused_mlp.cu"}
     assert {f.name for f in headers} >= {"flagship_common.cuh", "garf_common.cuh",
-                                         "train_common.cuh", "garf_train.cuh"}
+                                         "train_common.cuh", "garf_train.cuh",
+                                         "garf_render.cuh"}
     assert set(cuda_build.SIGNATURES) == {"netpu_render_fwd", "netpu_flagship_render",
                                           "netpu_render_bwd", "netpu_flagship_train",
                                           "netpu_garf_render", "netpu_garf_train",
