@@ -69,8 +69,9 @@ Phases, each raising on failure:
      tables, points on grid vertices and at 0; relative norm 1e-5;
  17. hold the hash-grid backward kernel (K8) against
      the plain backward (autograd through `encode_reference`) for the same
-     settings (d_table, d_x), and two launches against each other (d_table
-     by tolerance: fp32 atomics);
+     settings (d_table, d_x by relative norm 1e-5); d_table bitwise equal over
+     two launches (with and without d_x) and to
+     `dtable_fixed_point_reference` (K8's int64 fixed point emulated in torch);
  18. one INGP train step through K7 / K8 against the same step with the
      plain encoding (fp32, bf16): the loss and every gradient handed to Adam;
  19. the INGP entry points end to end with K7, K8, K1 and K3 counted:
@@ -78,10 +79,12 @@ Phases, each raising on failure:
      fp32 with checkpoints: the train PSNR must rise by > 1 dB; 20 steps
      bf16), `render_views --entry ingp` on the checkpoint (a crop against the
      plain CPU path), `run_2d_ingp.main` at its defaults (val PSNR > 12 dB);
- 20. time K7 / K8 at 524,288 points against their plain versions and the
-     library calls of their table access (`index_select`, `index_add_`),
-     the INGP train step with kernels against the plain encoding at 4096
-     rays, and profile one step;
+ 20. time K7 / K8 at 524,288 and 262,144 points (K8 without d_x, the table
+     gradient alone, and with d_x, as the INGP step launches it: its camera
+     parameters require grad) against their plain versions, the library
+     calls of their table access (`index_select`, `index_add_`) and their
+     bounds; the INGP train step with kernels against the plain encoding at
+     4096 rays, and profile one step (K7 / K8 device ms, idle share);
  21. hold the fused MLP chain's forward (K9) and backward (K10) against
      `fused_chain_reference` and autograd through it: run_mip_nerf's three
      chains at one step's 262,144 rows and a ragged 1,000, fp32 and bf16,
@@ -665,7 +668,8 @@ def phase_training(dev, workdir):
 
 
 def profile_step(step_fn, label: str) -> None:
-    """Kernel time by name for one train step (torch.profiler)."""
+    """Kernel time by name for one train step (torch.profiler): (host wall
+    ms, device ms, {kernel name: device ms})."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn()
@@ -682,6 +686,7 @@ def profile_step(step_fn, label: str) -> None:
         f"(idle share {max(0.0, 1 - total / wall):.3f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return wall, total, {e.key: e.self_device_time_total / 1e3 for e in events}
 
 
 def phase_train_timing(dev):
@@ -1254,16 +1259,22 @@ INGP_RAYS = 4096  # bench.py's `ingp` batch
 INGP_POINTS = INGP_RAYS * 128  # the fine stage's samples at that batch
 INGP_IMAGE = 64
 # K7 / K8: relative norm against the plain version; summation order and FMA
-# contraction only (both round the same rows to bf16 when asked), plus the
-# order of K8's atomics.
+# contraction only (both round the same rows to bf16 when asked; K8 sums
+# d_table exactly in int64 fixed point and rounds each sum once).
 TOL_HASH = 1e-5
-HASH_GRIDS = (  # (name, HashGridConfig kwargs, points)
-    ("3-D L16 F2 res 16-512", dict(dim=3), INGP_POINTS),
-    ("2-D L16 F2 res 16-2048", dict(dim=2, resolution_max=2048), 8192),
-    ("3-D L4 F8 res 16-512", dict(dim=3, n_levels=4, n_features=8), 65536),
-)
 HASH_VARIANTS = (("xor", None), ("xor", torch.bfloat16), ("additive", None),
                  ("additive", torch.bfloat16))
+# (name, HashGridConfig kwargs, points, variants). An odd table size puts
+# every odd level's first row off a row-pair boundary, where the kernels must
+# not take their paired row load; the additive hash needs a power of two.
+HASH_GRIDS = (
+    ("3-D L16 F2 res 16-512", dict(dim=3), INGP_POINTS, HASH_VARIANTS),
+    ("2-D L16 F2 res 16-2048", dict(dim=2, resolution_max=2048), 8192, HASH_VARIANTS),
+    ("3-D L4 F8 res 16-512", dict(dim=3, n_levels=4, n_features=8), 65536, HASH_VARIANTS),
+    ("3-D L16 F2 T 2^16 - 1", dict(dim=3, table_size=2**16 - 1), 65536, HASH_VARIANTS[:2]),
+    ("2-D L16 F1 T 2^14 - 1", dict(dim=2, n_features=1, table_size=2**14 - 1,
+                                   resolution_max=2048), 8192, HASH_VARIANTS[:2]),
+)
 
 
 def hash_inputs(grid_kw: dict, n: int, seed: int, dev):
@@ -1287,14 +1298,14 @@ def hash_inputs(grid_kw: dict, n: int, seed: int, dev):
 
 def phase_hash_forward(dev):
     """K7 against `encode_reference` on the card: 3-D at run_3d_ingp's
-    defaults and 524,288 points, 2-D at run_2d_ingp's, and F = 8 at 4
-    levels; xor and additive, fp32 and bf16 rows."""
+    defaults and 524,288 points, 2-D at run_2d_ingp's, F = 8 at 4 levels,
+    and odd table sizes (F 2 and 1); xor and additive, fp32 and bf16 rows."""
     from nerf_experiments_tpu_torch.ops import hashgrid
 
     worst_abs_fp32 = 0.0
-    for name, grid_kw, n in HASH_GRIDS:
+    for name, grid_kw, n, variants in HASH_GRIDS:
         cfg, table, x = hash_inputs(grid_kw, n, 50, dev)
-        for hash_kind, gather in HASH_VARIANTS:
+        for hash_kind, gather in variants:
             got = hashgrid.hash_encode_fwd_cuda(table, x, cfg, hash_kind, gather)
             ref = hashgrid.encode_reference(table, cfg, x, hash_kind, gather)
             torch.cuda.synchronize()
@@ -1322,38 +1333,108 @@ def plain_hash_grads(table, cfg, x, g, hash_kind="xor", gather=None):
 
 def phase_hash_backward(dev):
     """K8 against the plain backward (`plain_hash_grads`) for the same
-    settings: d_table and d_x by relative norm, and two launches against each
-    other (d_table by the same tolerance: fp32 atomics add in no fixed order;
-    d_x bitwise)."""
+    settings: d_table and d_x by relative norm; d_table bitwise equal over two
+    launches (with d_x and without) and to its
+    emulation `dtable_fixed_point_reference` (int64 sums do not depend on the
+    order of the atomics); d_x bitwise equal over two launches."""
     from nerf_experiments_tpu_torch.ops import hashgrid
 
     worst_abs_fp32 = 0.0
-    for name, grid_kw, n in HASH_GRIDS:
+    for name, grid_kw, n, variants in HASH_GRIDS:
         cfg, table, x = hash_inputs(grid_kw, n, 51, dev)
         g = torch.randn((n, cfg.output_dim), generator=torch.Generator(dev).manual_seed(52),
                         device=dev)
-        for hash_kind, gather in HASH_VARIANTS:
+        for hash_kind, gather in variants:
             got = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, gather)
             again = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, gather)
+            step = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, gather,
+                                                 need_dx=False)
             ref = plain_hash_grads(table, cfg, x, g, hash_kind, gather)
+            emulated = hashgrid.dtable_fixed_point_reference(cfg, x, g, hash_kind)
             torch.cuda.synchronize()
-            errs = {"d_table": rel_norm(got[0], ref[0]), "d_x": rel_norm(got[1], ref[1]),
-                    "d_table two launches": rel_norm(got[0], again[0])}
+            errs = {"d_table": rel_norm(got[0], ref[0]), "d_x": rel_norm(got[1], ref[1])}
+            bitwise = {"two launches": torch.equal(got[0], again[0]),
+                       "without d_x": torch.equal(got[0], step[0]),
+                       "emulation": torch.equal(got[0], emulated)}
             abs_err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
             log(f"K8 hash_encode_bwd {name}, {n} points, {hash_kind} "
                 f"{'bf16' if gather else 'fp32'} rows: rel norm err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                + f" (d_table bitwise equal over two launches: "
-                f"{torch.equal(got[0], again[0])}), max abs err {abs_err:.3e}, tol {TOL_HASH}")
+                + ", d_table bitwise equal over "
+                + ", ".join(f"{k}: {v}" for k, v in bitwise.items())
+                + f"; max abs err {abs_err:.3e}, tol {TOL_HASH}")
             for k, v in errs.items():
                 require(v <= TOL_HASH and math.isfinite(v), f"K8 {name} {hash_kind} {k} {v}")
+            for k, v in bitwise.items():
+                require(v, f"K8 {name} {hash_kind} {gather}: d_table not bitwise equal ({k})")
             require(torch.equal(got[1], again[1]), f"K8 {name}: d_x differs between launches")
             if gather is None:
                 worst_abs_fp32 = max(worst_abs_fp32, abs_err)
-            del got, again, ref
+            del got, again, step, ref, emulated
         del table, x, g
+    cfg, table, x = hash_inputs(dict(dim=3), 4096, 53, dev)
+    g = torch.randn((4096, cfg.output_dim), generator=torch.Generator(dev).manual_seed(54),
+                    device=dev)
+    g[7, 3] = float("nan")
+    d_table, _ = hashgrid.hash_encode_bwd_cuda(table, x, g, cfg, need_dx=False)
+    require(bool(torch.isnan(d_table).all()), "K8: a NaN cotangent must give a NaN d_table")
+    log("K8 with a NaN in the cotangent: d_table all NaN (the trainer's finite guard sees it)")
     torch.cuda.empty_cache()
     return worst_abs_fp32
+
+
+def fixed_point_precision(table, cfg, x, g, got, hash_kind, label: str) -> dict:
+    """K8's d_table `got` for one launch's (x, g) against the exact sums of
+    its fp32 terms (`hashgrid.dtable_terms` added in float64) and against the
+    plain fp32 scatter (`plain_hash_grads`), element by element: K8's quantum
+    2^-s is absolute, the plain sum's error relative. Logs the elements that
+    the plain backward gives as nonzero and K8 as 0, and per band of |exact|
+    / max|g| the worst and median relative error of both. Requires every
+    element within its terms x 2^-(s+1) (and fp32's last rounding) of the
+    exact sum."""
+    from nerf_experiments_tpu_torch.ops import hashgrid
+
+    x, g = x.detach(), g.detach()
+    gmax = float(g.abs().max())
+    s = hashgrid.fixed_point_shift(gmax, x.shape[0], cfg.dim)
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    exact = torch.zeros((L * T, F), dtype=torch.float64, device=x.device)
+    terms = torch.zeros((L * T,), dtype=torch.float64, device=x.device)
+    for rows, c in hashgrid.dtable_terms(cfg, x, g, hash_kind):
+        exact.index_add_(0, rows, c.double())
+        terms.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
+    plain = plain_hash_grads(table, cfg, x, g, hash_kind)[0].reshape(-1).double()
+    got, exact = got.reshape(-1).double(), exact.reshape(-1)
+    terms = terms[:, None].expand(-1, F).reshape(-1)
+    err = (got - exact).abs()
+    allowed = terms * 2.0 ** -(s + 1) * (1 + 2.0**-22) + exact.abs() * 2.0**-23
+    require(bool((err <= allowed).all()), f"K8 {label}: an element beyond its quantum")
+    lost = int(((plain != 0) & (got == 0)).sum())
+    nonzero = int((plain != 0).sum())
+    out = {"shift": s, "max_abs_g": gmax, "plain_nonzero": nonzero, "k8_zero_of_those": lost,
+           "bands": {}}
+    ratio = exact.abs() / gmax
+    edges = (float("inf"), 2.0**-17, 2.0**-30, 2.0**-40, 0.0)
+    parts = []
+    for hi, lo in zip(edges, edges[1:]):
+        sel = (ratio < hi) & (ratio >= lo) & (exact != 0)
+        k = int(sel.sum())
+        if k == 0:
+            continue
+        rel_k8 = (err[sel] / exact[sel].abs())
+        rel_plain = ((plain[sel] - exact[sel]).abs() / exact[sel].abs())
+        band = {"elements": k, "k8_zero": int((got[sel] == 0).sum()),
+                "k8_worst": float(rel_k8.max()), "k8_median": float(rel_k8.median()),
+                "plain_worst": float(rel_plain.max()), "plain_median": float(rel_plain.median())}
+        out["bands"][f"[{lo:.3g}, {hi:.3g})"] = band
+        parts.append(f"|exact|/max|g| in [{lo:.3g}, {hi:.3g}): {k} elements, K8 0 in "
+                     f"{band['k8_zero']}, rel err K8 worst {band['k8_worst']:.3e} median "
+                     f"{band['k8_median']:.3e}, plain worst {band['plain_worst']:.3e} median "
+                     f"{band['plain_median']:.3e}")
+    log(f"K8 fixed point on {label} ({x.shape[0]} points, max|g| {gmax:.6e}, s {s}): "
+        f"{lost} of the plain backward's {nonzero} nonzero d_table elements are 0 in K8 "
+        f"({lost / max(nonzero, 1):.3e}); " + "; ".join(parts))
+    return out
 
 
 def plain_hash_encoding():
@@ -1460,10 +1541,15 @@ def phase_ingp_training(dev, workdir):
     `run_3d_ingp.main` at full width on the 64^2 scene (300 steps fp32 with
     checkpoints: the train PSNR must rise by > 1 dB; 20 steps --bf16),
     `render_views --entry ingp` on the checkpoint (a crop against the plain
-    CPU path), and `run_2d_ingp.main` at its defaults (val PSNR > 12 dB)."""
+    CPU path), and `run_2d_ingp.main` at its defaults (val PSNR > 12 dB).
+    The fp32 run's last K8 launches (coarse and fine) are kept, and
+    `fixed_point_precision` reads K8's d_table for their cotangents."""
+    from unittest import mock
+
     import numpy as np
 
     from nerf_experiments_tpu_torch.experiments import render_views, run_2d_ingp, run_3d_ingp
+    from nerf_experiments_tpu_torch.ops import hashgrid
     from nerf_experiments_tpu_torch.ops.hashgrid import hash_encode_bwd_cuda, hash_encode_fwd_cuda
     from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
     from nerf_experiments_tpu_torch.systems import barf as barf_sys
@@ -1490,8 +1576,17 @@ def phase_ingp_training(dev, workdir):
             "--device", str(dev)]
     out = os.path.join(workdir, "ingp_fp32")
     steps = 300
-    state, launches = counted(run_3d_ingp.main, base + [
-        "--max_steps", str(steps), "--checkpoint_every_n_epochs", "10", "--out_dir", out])
+    last_launch = {}  # points -> the last K8 launch's (table, x, g, cfg, hash)
+    backward = hashgrid.HashEncode.backward
+
+    def keep(ctx, g):
+        table, x = ctx.saved_tensors
+        last_launch[x.shape[0]] = (table, x, g.contiguous()) + ctx.args[:2]
+        return backward(ctx, g)
+
+    with mock.patch.object(hashgrid.HashEncode, "backward", staticmethod(keep)):
+        state, launches = counted(run_3d_ingp.main, base + [
+            "--max_steps", str(steps), "--checkpoint_every_n_epochs", "10", "--out_dir", out])
     r = rows(out)
     psnrs = [x["psnr"] for x in r if "psnr" in x and math.isfinite(x["psnr"])]
     rates = [x["train_rays_per_sec"] for x in r if "train_rays_per_sec" in x]
@@ -1507,6 +1602,12 @@ def phase_ingp_training(dev, workdir):
     require(launches["hash_encode_fwd"] >= 2 * steps, "K7 not twice on every step")
     require(launches["render_fwd"] >= 2 * steps and launches["render_bwd"] == 2 * steps,
             "K1 / K3 not on every step")
+    for n, (table, x, g, cfg, hash_kind) in sorted(last_launch.items()):
+        d_table, _ = hash_encode_bwd_cuda(table, x, g, cfg, hash_kind, need_dx=False)
+        fixed_point_precision(table, cfg, x, g, d_table, hash_kind,
+                              f"run_3d_ingp fp32 step {steps}'s {n}-point launch")
+    del last_launch
+    torch.cuda.empty_cache()
 
     out_bf16 = os.path.join(workdir, "ingp_bf16")
     state, launches = counted(run_3d_ingp.main, base + [
@@ -1562,45 +1663,63 @@ def phase_ingp_training(dev, workdir):
 
 
 def phase_ingp_timing(dev):
-    """K7 / K8 by device time per call at run_3d_ingp's defaults and 524,288
-    points (4096 rays x 128 fine samples), against their plain versions and
-    the library calls that do their table access alone (`index_select` of
-    the precomputed global rows, `index_add_` of the contributions); the
-    INGP train step with the kernels against the plain encoding at 4096
-    rays, in turns; a profile of one step."""
+    """K7 / K8 by device time per call at run_3d_ingp's defaults, at the fine
+    stage's 524,288 points (4096 rays x 128 samples) and the coarse stage's
+    262,144 (x 64): K8 without d_x (the table gradient alone, `index_add_`'s
+    work) and with d_x (as the INGP step launches it), against
+    their plain versions, the library calls that do their table access alone
+    (`index_select` of the precomputed global rows, `index_add_` of the
+    contributions) and their bounds; the INGP train step with the kernels
+    against the plain encoding at 4096 rays, in turns; a profile of one step
+    with K7's and K8's device ms and the idle share."""
     import copy
 
     from nerf_experiments_tpu_torch.ops import hashgrid
     from nerf_experiments_tpu_torch.systems import barf as barf_sys
 
     times = {}
-    cfg, table, x = hash_inputs(dict(dim=3), INGP_POINTS, 70, dev)
-    g = torch.randn((INGP_POINTS, cfg.output_dim), generator=torch.Generator(dev).manual_seed(71),
-                    device=dev)
-    T, F = cfg.table_size, cfg.n_features
-    rows = torch.cat([hashgrid._level_rows_and_offsets(cfg, res, x, "xor")[0].reshape(-1) + l * T
-                      for l, res in enumerate(cfg.level_resolutions)])
-    flat = table.reshape(-1, F)
-    contrib = torch.randn((rows.shape[0], F), generator=torch.Generator(dev).manual_seed(72),
-                          device=dev)
     calls = 50
-    # the 8 MiB table stays in L2 from call to call, as it does through a
-    # step, and the bound counts it once; the 67 MB output (K7) and
-    # cotangent (K8) exceed the L2
-    times["K7"] = (device_ms(lambda: hashgrid.hash_encode_fwd_cuda(table, x, cfg), calls),
-                   device_ms(lambda: hashgrid.encode_reference(table, cfg, x), calls),
-                   device_ms(lambda: torch.index_select(flat, 0, rows), calls))
-    times["K8"] = (
-        device_ms(lambda: hashgrid.hash_encode_bwd_cuda(table, x, g, cfg), calls),
-        device_ms(lambda: plain_hash_grads(table, cfg, x, g), calls),
-        device_ms(lambda: torch.zeros_like(flat).index_add_(0, rows, contrib), calls))
-    for k, name in (("K7", "hash_encode_fwd"), ("K8", "hash_encode_bwd")):
-        log(f"time {k} {name} {INGP_POINTS} points 3-D L16 F2 T 2^16 fp32, device time per "
-            f"call over {calls} calls: kernel {times[k][0]:.4f} ms, plain {times[k][1]:.4f} ms, "
-            f"library ({'index_select' if k == 'K7' else 'index_add_'} of "
-            f"{rows.shape[0]} rows) {times[k][2]:.4f} ms")
-    del table, x, g, rows, flat, contrib
-    torch.cuda.empty_cache()
+    for n in (INGP_POINTS, INGP_POINTS // 2):
+        cfg, table, x = hash_inputs(dict(dim=3), n, 70, dev)
+        g = torch.randn((n, cfg.output_dim), generator=torch.Generator(dev).manual_seed(71),
+                        device=dev)
+        T, F = cfg.table_size, cfg.n_features
+        rows = torch.cat([hashgrid._level_rows_and_offsets(cfg, res, x, "xor")[0].reshape(-1)
+                          + l * T for l, res in enumerate(cfg.level_resolutions)])
+        flat = table.reshape(-1, F)
+        contrib = torch.randn((rows.shape[0], F), generator=torch.Generator(dev).manual_seed(72),
+                              device=dev)
+        # the 8 MiB table stays in L2 from call to call, as it does through a
+        # step, and the bound counts it once; the output (K7) and the
+        # cotangent (K8), 67 MB at 524,288 points, exceed the L2
+        t = {"K7": (device_ms(lambda: hashgrid.hash_encode_fwd_cuda(table, x, cfg), calls),
+                    device_ms(lambda: hashgrid.encode_reference(table, cfg, x), calls),
+                    device_ms(lambda: torch.index_select(flat, 0, rows), calls)),
+             "K8_no_dx": (device_ms(lambda: hashgrid.hash_encode_bwd_cuda(
+                 table, x, g, cfg, need_dx=False), calls),),
+             "K8": (device_ms(lambda: hashgrid.hash_encode_bwd_cuda(table, x, g, cfg), calls),
+                    device_ms(lambda: plain_hash_grads(table, cfg, x, g), calls),
+                    device_ms(lambda: torch.zeros_like(flat).index_add_(0, rows, contrib),
+                              calls))}
+        b = hash_bounds(n)
+        library = {"K7": "index_select", "K8_no_dx": "index_add_", "K8": "index_add_"}
+        for k, name, key in (("K7", "hash_encode_fwd", "hash_encode_fwd"),
+                             ("K8_no_dx", "hash_encode_bwd without d_x", "hash_encode_bwd_no_dx"),
+                             ("K8", "hash_encode_bwd with d_x", "hash_encode_bwd")):
+            ms = t[k][0]
+            lib_ms = t["K8"][2] if k == "K8_no_dx" else t[k][2]
+            line = (f"time {k.split('_')[0]} {name} {n} points 3-D L16 F2 T 2^16 fp32, device "
+                    f"time per call over {calls} calls: kernel {ms:.4f} ms, bound "
+                    f"{b[key][0]:.4f} ms ({b[key][1]}, {b[key][0] / ms:.3f} of it), "
+                    f"library ({library[k]} of {rows.shape[0]} rows) {lib_ms:.4f} ms "
+                    f"(kernel / library {ms / lib_ms:.3f})")
+            if k != "K8_no_dx":
+                line += f", plain {t[k][1]:.4f} ms" + (" (d_table and d_x)" if k == "K8" else "")
+            log(line)
+        suffix = "" if n == INGP_POINTS else f"_{n}"
+        times.update({k + suffix: v for k, v in t.items()})
+        del table, x, g, rows, flat, contrib
+        torch.cuda.empty_cache()
 
     for bf16 in (False, True):
         tag = "bf16" if bf16 else "fp32"
@@ -1628,8 +1747,16 @@ def phase_ingp_timing(dev):
             f"{INGP_RAYS / p * 1e3:.0f} rays/s")
         state = barf_sys.init_state(cfg, copy.deepcopy(params))
         step = barf_sys.make_train_step(cfg)
-        profile_step(lambda: step(state, batch, torch.Generator(device=dev).manual_seed(75),
-                                  0.0, 0.0, 0.0), f"INGP train step {tag}")
+        wall, total, by_name = profile_step(
+            lambda: step(state, batch, torch.Generator(device=dev).manual_seed(75), 0.0, 0.0,
+                         0.0), f"INGP train step {tag}")
+        k7 = sum(v for k, v in by_name.items() if "hash_fwd_kernel" in k)
+        k8 = sum(v for k, v in by_name.items() if any(
+            f in k for f in ("hash_bwd_", "hash_dx_kernel", "abs_max_kernel", "fixed_to_float")))
+        times[f"profile_{tag}"] = (wall, total, k7, k8)
+        log(f"profile INGP train step {tag}: K7 {k7:.4f} ms, K8 {k8:.4f} ms (its kernels; its "
+            f"two memsets are counted with the step's) of {total:.4f} ms device time, host "
+            f"wall {wall:.4f} ms, idle share {max(0.0, 1 - total / wall):.4f}")
         del state, params
         torch.cuda.empty_cache()
     return times
@@ -2175,6 +2302,23 @@ def weight_count(module) -> int:
     return sum(p.numel() for n, p in module.named_parameters() if n.endswith(".w"))
 
 
+def hash_bounds(B: int) -> dict:
+    """K7's and K8's bounds at B 3-D points of run_3d_ingp's grid (L16 F2 T
+    2^16 fp32): bytes of x, g / the output and the table (gradient) once;
+    operations: per (point, level) 6 d for the cell and per corner the weight's
+    d - 1 products, and 2 F (K7: F multiply-adds; K8 without d_x: F products and
+    F adds into the table); with d_x, K8's 2^d (4 F + d (d + 2)), and x read and
+    d_x written."""
+    L, T, F, D = 16, 2**16, 2, 3
+    f32 = 4
+    per_level = 6 * D + 2**D * (D - 1 + 2 * F)
+    return {"hash_encode_fwd": bound(f32 * (B * D + L * T * F + B * L * F), B * L * per_level),
+            "hash_encode_bwd_no_dx": bound(f32 * (B * D + B * L * F + L * T * F),
+                                           B * L * per_level),
+            "hash_encode_bwd": bound(f32 * (B * D + B * L * F + 2 * L * T * F + B * D),
+                                     B * L * 2**D * (4 * F + D * (D + 2)))}
+
+
 def kernel_bounds():
     """The bound of every kernel at the shape its time was taken at (K1 / K3
     8192 x 64, K2 / K4 / K11 8192 x 128 and K6 8192 x 192 fp32, K5 4096 x
@@ -2184,7 +2328,8 @@ def kernel_bounds():
     of the layers' multiply-adds (2 per weight a sample: forward; 6: forward
     and both backward products) or, for the memory-bound kernels, a count
     per element from the source (K1 ~16 a sample, K3 ~30, K7 6 d per level
-    and point plus 2^d (d - 1 + 2 F), K8 2^d (4 F + d (d + 2))). K2, K11
+    and point plus 2^d (d - 1 + 2 F), K8 without d_x the same, with d_x
+    2^d (4 F + d (d + 2))). K2, K11
     (K2's kernel), K5 and K6 run their products on the tensor cores: in fp32
     as three TF32 products each (3xTF32) at the TF32 rate, in bf16 at the
     bf16 rate (K5 / K6 also keep their fp32 bound at the CUDA cores' rate,
@@ -2224,11 +2369,7 @@ def kernel_bounds():
     out["garf_render"] = bound(render_io, 3 * render_ops, TF32_FLOP_PER_S)
     out["garf_render_bf16"] = bound(render_io, render_ops, BF16_FLOP_PER_S)
     out["garf_render_cuda_cores"] = bound(render_io, render_ops)
-    B, L, T, F, D = INGP_POINTS, 16, 2**16, 2, 3
-    out["hash_encode_fwd"] = bound(f32 * (B * D + L * T * F + B * L * F),
-                                   B * L * (6 * D + 2**D * (D - 1 + 2 * F)))
-    out["hash_encode_bwd"] = bound(f32 * (B * D + B * L * F + 2 * L * T * F + B * D),
-                                   B * L * 2**D * (4 * F + D * (D + 2)))
+    out.update(hash_bounds(INGP_POINTS))
     # K9 / K10: run_mip_nerf's three chains at MIP_ROWS rows each; K9 reads x
     # and the weights and writes y, K10 also reads g and writes dx and dW / db
     mip = nerf_mlp.init(torch.Generator().manual_seed(0), mip_config()[0].radiance)
@@ -2404,6 +2545,11 @@ def main() -> int:
                   "garf_render": {"": garf_times["K6_gabor_bf16"]},
                   "fused_mlp_fwd": {"": mip_times["K9_bf16"][:2]},
                   "fused_mlp_bwd": {"": mip_times["K10_bf16"][:2]}}
+    # K8 also without d_x (the table gradient alone: index_add_'s work)
+    for k in kernels["kernels"]:
+        if k["name"] == "hash_encode_bwd":
+            k["ms_no_dx"] = ingp_times["K8_no_dx"][0]
+            k["bound_ms_no_dx"] = bounds["hash_encode_bwd_no_dx"][0]
     for k in kernels["kernels"]:
         for suffix, (ms, plain) in bf16_times.get(k["name"], {}).items():
             k[f"ms_bf16{suffix}"], k[f"plain_ms_bf16{suffix}"] = ms, plain

@@ -19,13 +19,15 @@ each gathered table row to bf16 before the fp32 weighting; the table and
 its gradient stay fp32.
 
 `encode` on a CUDA tensor is the autograd function `HashEncode`: its
-forward is the kernel `netpu_hash_encode_fwd` and its backward
-`netpu_hash_encode_bwd` (`csrc/hashgrid.cu`, wrappers `hash_encode_fwd_cuda`
-/ `hash_encode_bwd_cuda`), which replace the TPU kernels
-`ops/hashgrid_pallas.py:_fwd_kernel` (the row fetch) and `_dtable_kernel`
-(the table gradient). On a CPU tensor it is the plain version,
-`encode_reference` (per-level gather, weighted sum) under torch autograd,
-whose backward scatter-adds into the table.
+forward is the kernel `netpu_hash_encode_fwd` (K7) and its backward
+`netpu_hash_encode_bwd` (K8) (`csrc/hashgrid.cu`, wrappers
+`hash_encode_fwd_cuda` / `hash_encode_bwd_cuda`), which replace the TPU
+kernels `ops/hashgrid_pallas.py:_fwd_kernel` (the row fetch) and
+`_dtable_kernel` (the table gradient). K8 sums d_table in int64 fixed point,
+so it is bitwise repeatable; `dtable_fixed_point_reference` emulates it. On
+a CPU tensor `encode` is the plain version, `encode_reference` (per-level
+gather, weighted sum) under torch autograd, whose backward scatter-adds
+into the table.
 
 The gradient of |u| at u = 0 is +1, as `jax.grad(jnp.abs)(0.0)` gives
 (torch's `abs` gives 0): a point on a grid vertex is common (pixel centres
@@ -206,11 +208,69 @@ def encode_reference(table: torch.Tensor, cfg: HashGridConfig, x: torch.Tensor,
 
 # ----------------------------------------------------------------- kernels
 
+SHIFT_RANGE = (-126, 126)  # K8's fixed-point shift, clamped so 2^s is a normal fp32
+
+
+def fixed_point_shift(max_abs_g: float, n: int, dim: int) -> int:
+    """K8's scale 2^s for a launch of n points whose cotangent has max |g| =
+    m 2^e (m in [0.5, 1)): s = 62 - d - ceil(log2 n) - e. A row takes at most
+    2^d n contributions w g with w <= 1, each quantised to |q| <= 2^(e+s) +
+    1/2, so no int64 sum reaches 2^63. Clamped to `SHIFT_RANGE`. The
+    quantum 2^-s is absolute: a term below 2^-(s+1) adds 0."""
+    if not max_abs_g > 0.0:
+        return 0
+    e = math.frexp(max_abs_g)[1]
+    return max(SHIFT_RANGE[0], min(SHIFT_RANGE[1], 62 - dim - (n - 1).bit_length() - e))
+
+
+def dtable_terms(cfg: HashGridConfig, x: torch.Tensor, g: torch.Tensor, hash: str = "xor"):
+    """K8's terms, level by level: (flat rows into the (L*T, F) table (B*2^d,),
+    contributions w g (B*2^d, F) fp32, w the plain version's product)."""
+    F, T = cfg.n_features, cfg.table_size
+    for l, res in enumerate(cfg.level_resolutions):
+        rows, u = _level_rows_and_offsets(cfg, res, x, hash)
+        fac = 1.0 - _abs(u)
+        w = fac[..., 0]
+        for i in range(1, cfg.dim):
+            w = w * fac[..., i]
+        c = w[..., None] * g[:, None, l * F:(l + 1) * F]
+        yield (rows + l * T).reshape(-1), c.reshape(-1, F)
+
+
+def dtable_fixed_point_reference(cfg: HashGridConfig, x: torch.Tensor,
+                                 g: torch.Tensor, hash: str = "xor") -> torch.Tensor:
+    """Emulation of K8's table gradient: every term of `dtable_terms` times
+    2^s in fp32, rounded to int64 (half to even, as `__float2ll_rn`), summed
+    by `index_add_` in int64 and converted as acc 2^-s in float64 then fp32.
+    Integer sums do not depend on the order of the points, so this gives
+    K8's bits. All NaN when g holds a non-finite value. The rows' bf16
+    rounding does not reach d_table. For the tests; no path of the port
+    calls it."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    n = x.shape[0]
+    gmax = float(g.abs().max()) if g.numel() else 0.0
+    if not math.isfinite(gmax):
+        return torch.full((L, T, F), float("nan"), dtype=torch.float32, device=x.device)
+    s = fixed_point_shift(gmax, n, cfg.dim)
+    up = torch.tensor(2.0 ** s, dtype=torch.float32, device=x.device)
+    acc = torch.zeros((L * T, F), dtype=torch.int64, device=x.device)
+    for rows, c in dtable_terms(cfg, x, g, hash):
+        acc.index_add_(0, rows, torch.round((c * up).double()).long())
+    return (acc.double() * 2.0 ** -s).float().reshape(L, T, F)
+
+
+def level_info(cfg: HashGridConfig) -> List[int]:
+    """The kernels' per-level host array: [res, t_eff, bijective] * L +
+    primes[:3] (`make_levels` in csrc/hashgrid.cu reads it)."""
+    info = []
+    for res in cfg.level_resolutions:
+        info += [res, _effective_rows(cfg, res), int(cfg.bijective(res))]
+    return info + (list(cfg.primes) + [0, 0, 0])[:3]
+
 
 def _kernel_args(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig, hash: str,
                  gather_dtype):
-    """Check the kernels' inputs and pack the per-level host array
-    [res, t_eff, bijective] * L + primes[:3] (uint32)."""
+    """Check the kernels' inputs and pack `level_info` as uint32."""
     L, T, F = table.shape
     n, d = x.shape
     dev = x.device
@@ -225,17 +285,16 @@ def _kernel_args(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig, hash
             f"table {tuple(table.shape)}, x {tuple(x.shape)}, {cfg}, {hash}, {gather_dtype}")
     if table.data_ptr() % 16:
         raise ValueError("table: the kernels' vector loads need 16-byte alignment")
-    info = []
-    for res in cfg.level_resolutions:
-        info += [res, _effective_rows(cfg, res), int(cfg.bijective(res))]
-    info += (list(cfg.primes) + [0, 0, 0])[:3]
+    if 16 * n * L >= 2**31:
+        raise ValueError(f"hash-grid kernels index (point, level, lane) in int32; got {n} x {L}")
+    info = level_info(cfg)
     arr = (ctypes.c_uint32 * len(info))(*info)
     return L, T, F, n, d, dev, arr
 
 
 def hash_encode_fwd_cuda(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
                          hash: str = "xor", gather_dtype=None) -> torch.Tensor:
-    """One launch of the forward kernel: (B, L*F) fp32."""
+    """One launch of the forward kernel (K7): (B, L*F) fp32."""
     L, T, F, n, d, dev, info = _kernel_args(table, x, cfg, hash, gather_dtype)
     lib = cuda_build.library()
     out = torch.empty((n, L * F), dtype=torch.float32, device=dev)
@@ -255,20 +314,26 @@ hash_encode_fwd_cuda.launches = 0
 def hash_encode_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                          cfg: HashGridConfig, hash: str = "xor", gather_dtype=None,
                          need_dx: bool = True):
-    """One launch of the backward kernel: (d_table (L, T, F) fp32, d_x (B, d)
-    or None). d_table is summed with fp32 atomics, so two launches differ in
-    the last bits; d_x is summed per point in a fixed order."""
+    """One launch of the backward kernels (K8): (d_table (L, T, F) fp32, d_x
+    (B, d) or None). d_table is summed in int64 fixed point and is bitwise
+    repeatable (`dtable_fixed_point_reference` gives its bits); d_x is summed
+    per point in a fixed order."""
     L, T, F, n, d, dev, info = _kernel_args(table, x, cfg, hash, gather_dtype)
     cuda_build.check_tensor("g", g, (n, L * F), dev)
+    if g.data_ptr() % 16:
+        raise ValueError("g: the kernels' vector loads need 16-byte alignment")
     lib = cuda_build.library()
-    d_table = torch.zeros((L, T, F), dtype=torch.float32, device=dev)
+    d_table = torch.empty((L, T, F), dtype=torch.float32, device=dev)
+    acc = torch.empty((L, T, F), dtype=torch.int64, device=dev)
+    gmax = torch.empty((1,), dtype=torch.int32, device=dev)
     d_x = torch.empty((n, d), dtype=torch.float32, device=dev) if need_dx else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.netpu_hash_encode_bwd(
             table.data_ptr(), x.data_ptr(), g.data_ptr(), d_table.data_ptr(),
-            None if d_x is None else d_x.data_ptr(), ctypes.cast(info, ctypes.c_void_p),
-            L, T, F, d, n, int(hash == "additive"), int(gather_dtype is not None), stream)
+            None if d_x is None else d_x.data_ptr(), acc.data_ptr(), gmax.data_ptr(),
+            ctypes.cast(info, ctypes.c_void_p), L, T, F, d, n, int(hash == "additive"),
+            int(gather_dtype is not None), stream)
     cuda_build.check(code, "netpu_hash_encode_bwd")
     hash_encode_bwd_cuda.launches += 1
     return d_table, d_x

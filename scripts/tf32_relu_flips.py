@@ -3,8 +3,12 @@ gradients, on the CPU: the plain version (`flagship_train_grads_reference`)
 with every layer's forward value computed from TF32 hi / lo splits (x W ~
 lo hi' + hi lo' + hi hi', the products the tensor-core route would take) and
 the backward in exact fp32, against the same plain version in fp32.
+`--products fp32` takes instead every forward value x W + b computed in
+float64 and rounded once to fp32 (the most exact an fp32 route can be): the
+yardstick of how much any other rounding of the same products moves the
+gradients in this configuration.
 
-    python scripts/tf32_relu_flips.py [--rays 200] [--samples 128]
+    python scripts/tf32_relu_flips.py [--rays 200] [--samples 128] [--products 3xtf32|fp32]
 
 The forward values move by ~2^-21 relative; a unit whose pre-activation is
 that close to 0 flips its ReLU, and the gradients of the layers below it
@@ -35,6 +39,17 @@ def tf32x3_forward(layer, x, compute_dtype=None):
     return exact + ((xl @ wh + xh @ wl) + xh @ wh + layer.b - exact).detach()
 
 
+def fp32_rounded_forward(layer, x, compute_dtype=None):
+    """x W + b computed in float64 and rounded once to fp32, with exact fp32's
+    gradient."""
+    exact = x @ layer.w + layer.b
+    value = (x.detach().double() @ layer.w.detach().double() + layer.b.detach().double()).float()
+    return exact + (value - exact).detach()
+
+
+FORWARDS = {"3xtf32": tf32x3_forward, "fp32": fp32_rounded_forward}
+
+
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
@@ -43,6 +58,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--rays", type=int, default=200)
     p.add_argument("--samples", type=int, default=128)
+    p.add_argument("--products", choices=sorted(FORWARDS), default="3xtf32")
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = nerf_mlp.NerfMLPConfig(
@@ -59,9 +75,10 @@ def main(argv=None) -> None:
     ts, te = sampling.sample_stratified(None, args.rays, args.samples, 2.0, 8.0, "equidistant")
     call = (params, cfg, o, d, ts, te, targets, 7.5, 2.5)
     ref = tm.flagship_train_grads_reference(*call)
-    with mock.patch.object(nerf_mlp, "linear_apply", tf32x3_forward):
+    with mock.patch.object(nerf_mlp, "linear_apply", FORWARDS[args.products]):
         got = tm.flagship_train_grads_reference(*call)
-    print(f"{args.rays} rays x {args.samples} samples, 3xTF32 forward vs fp32, rel norm:")
+    print(f"{args.rays} rays x {args.samples} samples, {args.products} forward products vs "
+          f"fp32, rel norm:")
     print(f"  rgb {rel(got[0], ref[0]):.3e}  d_origs {rel(got[2], ref[2]):.3e}  "
           f"d_dirs {rel(got[3], ref[3]):.3e}")
     for name, g in got[1].items():
