@@ -87,8 +87,11 @@ Phases, each raising on failure:
      4096 rays, and profile one step (K7 / K8 device ms, idle share);
  21. hold the fused MLP chain's forward (K9) and backward (K10) against
      `fused_chain_reference` and autograd through it: run_mip_nerf's three
-     chains at one step's 262,144 rows and a ragged 1,000, fp32 and bf16,
-     y, dx and every dW / db by relative norm, two K10 launches bitwise equal;
+     chains and a one-layer chain at one step's 262,144 rows and the ragged
+     40,037 and 1,000, fp32 and bf16, y, dx and every dW / db by relative
+     norm, two K10 launches bitwise equal; in fp32 also, as a diagnostic, the
+     plain chain's own error against float64 and the ReLU flips between
+     K10's recomputed forward and the plain one;
  22. hold K11 (`render_megakernel.flagship_render`: equidistant bins with
      per-ray offsets through K2's kernel) against its plain version at 8192
      x 128 fp32 and bf16 and a ragged 37 rays, and its config refusal;
@@ -101,8 +104,9 @@ Phases, each raising on failure:
      `FusedNerfMLPDef` config through `build_barf_experiment` and the
      trainer, a few steps of each thin entry point, and phase 9's BARF
      checkpoint served through K11;
- 25. time K9 / K10 at 262,144 rows against their plain versions and the
-     cuBLAS `addmm` chain, K11 against its plain version and K2 at 8192 x
+ 25. time K9 / K10 at 262,144 rows (weights packed once, as `FusedChain`
+     hands them) against their plain versions and the cuBLAS `addmm` chain
+     and their bounds (3xTF32 too), K11 against its plain version and K2 at 8192 x
      128, the Mip-NeRF step with `FusedNerfMLPDef` against `NerfMLPDef`, and
      profile one step of each.
 
@@ -1816,12 +1820,48 @@ def chain_inputs(layers, rows: int, seed: int, dev):
     return x, g
 
 
+def plain_chain64(x, layers, g):
+    """The plain chain and its backward in float64: (y, dx, [dW_i], [db_i])."""
+    leaves = [x.double().requires_grad_(True)]
+    leaves += [t.detach().double().requires_grad_(True) for l in layers for t in (l.w, l.b)]
+    with torch.enable_grad():
+        h = leaves[0]
+        for i in range(len(layers)):
+            h = h @ leaves[1 + 2 * i] + leaves[2 + 2 * i]
+            if i < len(layers) - 1:
+                h = torch.relu(h)
+        grads = torch.autograd.grad(h, leaves, g.double())
+    return h.detach(), grads[0], list(grads[1::2]), list(grads[2::2])
+
+
+def relu_flips(x, layers, g) -> int:
+    """The hidden units whose ReLU K10's recomputed forward (the activations
+    its row pass stores, fp32) and the plain fp32 forward decide
+    differently."""
+    from nerf_experiments_tpu_torch.ops import fused_mlp as fm
+
+    dims = chain_dims(layers)
+    act = torch.empty((x.shape[0], sum(dims[:-1])), device=x.device)
+    fm.fused_mlp_bwd_cuda(x, layers, g, False, act=act)
+    flips, off, h = 0, dims[0], x
+    with torch.no_grad():
+        for i, layer in enumerate(layers[:-1]):
+            h = torch.relu(h @ layer.w + layer.b)
+            flips += int(((act[:, off:off + dims[i + 1]] > 0) != (h > 0)).sum())
+            off += dims[i + 1]
+    return flips
+
+
 def phase_fused_mlp(dev):
     """K9 / K10 against the plain chain (`fused_chain_reference`, and
     autograd through it) on the card: run_mip_nerf's three chains (63 ->
-    4x256 -> 256, 319 -> 4x256 -> 257, 280 -> 128 -> 3) at one step's
-    262,144 rows and a ragged 1,000, fp32 and bf16; y, dx and every dW / db
-    by relative norm, and two K10 launches bitwise equal."""
+    4x256 -> 256, 319 -> 4x256 -> 257, 280 -> 128 -> 3) and a one-layer
+    chain (319 -> 256) at one step's 262,144 rows and the ragged 40,037 (3
+    dW splits) and 1,000, fp32 and bf16; y, dx and every dW / db by relative
+    norm, and two K10 launches bitwise equal. fp32 also prints, as a
+    diagnostic beside the gate, the plain fp32 chain's own error against a
+    float64 chain and the ReLUs K10's forward and the plain one decide
+    differently (`relu_flips`)."""
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import fused_mlp as fm
 
@@ -1830,8 +1870,9 @@ def phase_fused_mlp(dev):
         dtype = torch.bfloat16 if bf16 else None
         cfg, _ = mip_config(bf16)
         params = nerf_mlp.init(torch.Generator().manual_seed(20), cfg.radiance).to(dev)
-        for name, layers in chain_layers(params):
-            for rows in (MIP_ROWS, 1000):
+        chains = chain_layers(params) + [("one layer", [params.segments[1].layers[0]])]
+        for name, layers in chains:
+            for rows in (MIP_ROWS, 40_037, 1000):
                 x, g = chain_inputs(layers, rows, 21, dev)
                 with torch.no_grad():
                     y = fm.fused_mlp_fwd_cuda(x, layers, bf16)
@@ -1849,10 +1890,21 @@ def phase_fused_mlp(dev):
                 errs.update({n: rel_norm(a, b) for n, a, b in zip(names, got_all, ref_all)})
                 worst_k = max(errs, key=errs.get)
                 tol = TOL_CHAIN[bf16]
+                diag = ""
+                if not bf16:  # diagnostic only: the gate is TOL_CHAIN
+                    y64, dx64, dw64, db64 = plain_chain64(x, layers, g)
+                    plain = dict(zip(["y"] + names, [rel_norm(a, b) for a, b in zip(
+                        [y_ref, *ref_all], [y64, dx64, *dw64, *db64])]))
+                    plain_k = max(plain, key=plain.get)
+                    units = rows * sum(chain_dims(layers)[1:-1])
+                    diag = (f"; plain fp32 vs float64: y {plain['y']:.3e} dx {plain['dx']:.3e}, "
+                            f"worst {plain_k} {plain[plain_k]:.3e}; ReLU flips kernel vs plain "
+                            f"{relu_flips(x, layers, g)} of {units}")
+                    del y64, dx64, dw64, db64
                 log(f"K9/K10 fused_mlp {name} {chain_name(layers)} {rows} rows "
                     f"{'bf16' if bf16 else 'fp32'}: rel norm err y {errs['y']:.3e} dx "
                     f"{errs['dx']:.3e}, worst {worst_k} {errs[worst_k]:.3e} over {len(errs)} "
-                    f"outputs, tol {tol}; K10 bitwise equal over two launches: {bitwise}")
+                    f"outputs, tol {tol}; K10 bitwise equal over two launches: {bitwise}{diag}")
                 require(bitwise, f"K10 {name} {rows} rows: two launches differ")
                 for k, v in errs.items():
                     require(v <= tol and math.isfinite(v),
@@ -2176,61 +2228,77 @@ def library_chain(x, ws, bs):
     return h
 
 
-def phase_mip_timing(dev):
+def time_chains(dev) -> dict:
     """K9 / K10 on run_mip_nerf's three chains at 262,144 rows (one step's
-    rows) against the plain version and the cuBLAS chain (`torch.addmm` +
-    ReLU a layer, fp32 with TF32 off, and bf16; K10's: its forward and
-    autograd's backward), K11 against its plain version and K2 at 8192 x
-    128, and the Mip-NeRF train step at batch 1024 with `FusedNerfMLPDef`
-    against `NerfMLPDef`, in turns, with a profile of one step of each."""
-    import copy
-
+    rows), summed, against the plain version and the cuBLAS chain
+    (`torch.addmm` + ReLU a layer, fp32 with TF32 off, and bf16; K10's: its
+    forward and autograd's backward), fp32 and bf16. The kernels take the
+    packs `FusedChain` would hand them (packed once, outside the timing; the
+    packing's own time is printed)."""
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import fused_mlp as fm
-    from nerf_experiments_tpu_torch.ops import render_megakernel as rm
-    from nerf_experiments_tpu_torch.ops import train_megakernel
-    from nerf_experiments_tpu_torch.systems import barf as barf_sys
 
     times = {}
-    cfg, dm = mip_config()
+    cfg, _ = mip_config()
     params = nerf_mlp.init(torch.Generator().manual_seed(20), cfg.radiance).to(dev)
     for bf16 in (False, True):
         tag = "bf16" if bf16 else "fp32"
         dtype = torch.bfloat16 if bf16 else None
         lib_dtype = torch.bfloat16 if bf16 else torch.float32
-        tot = dict.fromkeys(("k9", "p9", "l9", "k10", "p10", "l10"), 0.0)
+        tot = dict.fromkeys(("k9", "p9", "l9", "k10", "p10", "l10", "pack"), 0.0)
         for name, layers in chain_layers(params):
             x, g = chain_inputs(layers, MIP_ROWS, 22, dev)
             lw = [l.w.detach().to(lib_dtype).requires_grad_(True) for l in layers]
             lb = [l.b.detach().to(lib_dtype).requires_grad_(True) for l in layers]
             xl, gl = x.to(lib_dtype).requires_grad_(True), g.to(lib_dtype)
+            packs = fm.pack_chain(layers, bf16, True, dev)
 
             def lib_bwd():
                 y = library_chain(xl, lw, lb)
                 return torch.autograd.grad(y, [xl, *lw, *lb], gl)
 
             with torch.no_grad():
-                t = {"k9": cuda_time_ms(lambda: fm.fused_mlp_fwd_cuda(x, layers, bf16)),
+                t = {"k9": cuda_time_ms(lambda: fm.fused_mlp_fwd_cuda(x, layers, bf16,
+                                                                      packed=packs[0])),
                      "p9": cuda_time_ms(lambda: fm.fused_chain_reference(x, layers, dtype)),
                      "l9": cuda_time_ms(lambda: library_chain(xl, lw, lb))}
-            t.update(k10=cuda_time_ms(lambda: fm.fused_mlp_bwd_cuda(x, layers, g, bf16)),
+            t.update(k10=cuda_time_ms(lambda: fm.fused_mlp_bwd_cuda(x, layers, g, bf16,
+                                                                    packed=packs)),
                      p10=cuda_time_ms(lambda: fm.fused_chain_bwd_reference(x, layers, g, dtype)),
-                     l10=cuda_time_ms(lib_bwd))
+                     l10=cuda_time_ms(lib_bwd),
+                     pack=host_ms(lambda: fm.pack_chain(layers, bf16, True, dev)))
             log(f"time K9/K10 {name} {chain_name(layers)} {MIP_ROWS} rows {tag}: K9 "
                 f"{t['k9']:.3f} ms (plain {t['p9']:.3f}, cuBLAS addmm chain {t['l9']:.3f}); K10 "
                 f"{t['k10']:.3f} ms (plain {t['p10']:.3f}, cuBLAS chain forward + backward "
                 f"{t['l10']:.3f}; workspace "
-                f"{fm.bwd_workspace_bytes(MIP_ROWS, chain_dims(layers), bf16) / 2**30:.2f} GiB)")
+                f"{fm.bwd_workspace_bytes(MIP_ROWS, chain_dims(layers), bf16) / 2**30:.2f} GiB); "
+                f"packing W and W^T {t['pack']:.3f} ms host")
             for k in tot:
                 tot[k] += t[k]
-            del x, g, xl, gl, lw, lb
+            del x, g, xl, gl, lw, lb, packs
             torch.cuda.empty_cache()
         times[f"K9_{tag}"] = (tot["k9"], tot["p9"], tot["l9"])
         times[f"K10_{tag}"] = (tot["k10"], tot["p10"], tot["l10"])
         log(f"time K9/K10 the three chains, {MIP_ROWS} rows {tag}: K9 {tot['k9']:.3f} ms "
             f"(plain {tot['p9']:.3f}, cuBLAS {tot['l9']:.3f}), K10 {tot['k10']:.3f} ms (plain "
-            f"{tot['p10']:.3f}, cuBLAS {tot['l10']:.3f})")
+            f"{tot['p10']:.3f}, cuBLAS {tot['l10']:.3f}); packing {tot['pack']:.3f} ms host")
+    return times
 
+
+def phase_mip_timing(dev):
+    """K9 / K10 against the plain chain and the cuBLAS chain (`time_chains`),
+    K11 against its plain version and K2 at 8192 x 128, and the Mip-NeRF
+    train step at batch 1024 with `FusedNerfMLPDef` against `NerfMLPDef`, in
+    turns, with a profile of one step of each."""
+    import copy
+
+    from nerf_experiments_tpu_torch.models import nerf_mlp
+    from nerf_experiments_tpu_torch.ops import render_megakernel as rm
+    from nerf_experiments_tpu_torch.ops import train_megakernel
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    times = time_chains(dev)
+    _, dm = mip_config()
     gen = torch.Generator(device=dev).manual_seed(31)
     s, near = 128, 2.0
     origs, dirs = random_rays(N_RAYS, gen, dev)
@@ -2333,7 +2401,9 @@ def kernel_bounds():
     (K2's kernel), K5 and K6 run their products on the tensor cores: in fp32
     as three TF32 products each (3xTF32) at the TF32 rate, in bf16 at the
     bf16 rate (K5 / K6 also keep their fp32 bound at the CUDA cores' rate,
-    the `_cuda_cores` keys; K9 / K10 their bf16 bound, the `_bf16` keys).
+    the `_cuda_cores` keys). K9 / K10 keep their fp32 bound at the CUDA
+    cores' rate and give their bf16 bound (`_bf16`) and the 3xTF32 one
+    (`_tf32`) beside it.
     K4 in bf16 at the bf16 rate; K4 in fp32 needs products exact to fp32
     (3xTF32 flips ReLUs: `scripts/tf32_relu_flips.py`), so it is bounded by
     the cheapest such split on the tensor cores: three bf16 parts a factor,
@@ -2387,6 +2457,14 @@ def kernel_bounds():
     out["fused_mlp_bwd_bf16"] = bound(f32 * (MIP_ROWS * (rows_io + sum(d0 for d0, _ in io))
                                              + 2 * weights),
                                       6 * weight_count(mip) * MIP_ROWS, BF16_FLOP_PER_S)
+    # ... and at the TF32 rate as three TF32 products each (3xTF32), the
+    # bound of the fp32 products on the tensor cores (K9's fp32 forward and
+    # K10's phase B run on the CUDA cores, so neither can reach it)
+    out["fused_mlp_fwd_tf32"] = bound(f32 * (MIP_ROWS * rows_io + weights),
+                                      3 * 2 * weight_count(mip) * MIP_ROWS, TF32_FLOP_PER_S)
+    out["fused_mlp_bwd_tf32"] = bound(f32 * (MIP_ROWS * (rows_io + sum(d0 for d0, _ in io))
+                                             + 2 * weights),
+                                      3 * 6 * weight_count(mip) * MIP_ROWS, TF32_FLOP_PER_S)
     # K11: K2's work at 8192 x 128 (rays and offsets in, rgb out)
     out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 3 * 2 * macs * N_RAYS * 128,
                                      TF32_FLOP_PER_S)
@@ -2556,6 +2634,14 @@ def main() -> int:
             k[f"bound_ms_bf16{suffix}"] = bounds[f"{k['name']}_bf16{suffix}"][0]
         if f"{k['name']}_cuda_cores" in bounds:
             k["bound_ms_fp32_cuda_cores"] = bounds[f"{k['name']}_cuda_cores"][0]
+        if f"{k['name']}_tf32" in bounds:  # K9 / K10: fp32 as 3xTF32
+            k["bound_ms_tf32"] = bounds[f"{k['name']}_tf32"][0]
+    # K9 / K10: the bf16 cuBLAS chain beside the fp32 one
+    library_bf16 = {"fused_mlp_fwd": mip_times["K9_bf16"][2],
+                    "fused_mlp_bwd": mip_times["K10_bf16"][2]}
+    for k in kernels["kernels"]:
+        if k["name"] in library_bf16:
+            k["library_ms_bf16"] = library_bf16[k["name"]]
     idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
     require(not idle, f"kernels never launched on their main paths: {idle}")
     for k in kernels["kernels"]:

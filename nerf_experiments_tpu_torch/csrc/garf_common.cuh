@@ -51,10 +51,6 @@ namespace garf {
 constexpr int kLayers = 10;
 constexpr int kActs = 8;
 constexpr int kChunk0 = 64;  // layer-0 columns a streamed chunk
-// tile_gemm's kFlush: fp32 (3xTF32) adds each 8-k-step chain of the tensor
-// cores' accumulator into the result by fp32 adds (K runs to 1024 here)
-template <bool kBf16>
-constexpr int kFlushK = kBf16 ? 0 : 8;
 enum Activation { kGauss = 0, kGabor = 1, kSarf = 2 };
 
 // ---- the activation family (models/garf.py; formulas of the TPU kernels) ----

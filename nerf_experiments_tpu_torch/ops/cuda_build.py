@@ -74,11 +74,12 @@ SIGNATURES = {
     # table, x, g, d_table, d_x (nullable), acc, gmax, level_info (host),
     # n_levels, table_size, n_features, dim, n, additive, bf16, stream
     "netpu_hash_encode_bwd": [_P] * 8 + [_I] * 7 + [_P],
-    # x, w_ptrs, b_ptrs, dims (host), n_layers, bf16, n_rows, y, stream
-    "netpu_fused_mlp_fwd": [_P] * 4 + [_I, _I, _L, _P, _P],
-    # x, g, w_ptrs, wt_ptrs, b_ptrs, dims (host), n_layers, bf16, n_rows, act,
-    # cot, act_width, cot_width, part, splits, dx, grads, stream
-    "netpu_fused_mlp_bwd": [_P] * 6 + [_I, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P],
+    # x, wf_ptrs, b_ptrs, dims (host), n_layers, bf16, tile_rows, n_rows, y,
+    # stream
+    "netpu_fused_mlp_fwd": [_P] * 4 + [_I, _I, _I, _L, _P, _P],
+    # x, g, wf_ptrs, wb_ptrs, b_ptrs, dims (host), n_layers, bf16, tile_rows,
+    # n_rows, act, cot, act_width, cot_width, part, splits, dx, grads, stream
+    "netpu_fused_mlp_bwd": [_P] * 6 + [_I, _I, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
 
 

@@ -180,13 +180,13 @@ def _layer_parts(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
 
 @functools.lru_cache(maxsize=8)
 def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str,
-               first: int = 0):
+               first: int = 0, forward: bool = True):
     """Where every packed element comes from: an index into the layers'
     weights (in, out) flattened in layer order with one zero after them (fp32:
     their TF32 hi parts, then the lo parts, each so), and per packed operand
     of layers first.. its (offset, shape) in the result (the layers before
-    `first` run on the CUDA cores and are not packed). Built once per layout
-    and device."""
+    `first` run on the CUDA cores and are not packed; without `forward`, only
+    the backward operands are). Built once per layout and device."""
     offsets, n_src = [], 0
     for parts, out in layer_parts:
         offsets.append(n_src)
@@ -209,7 +209,8 @@ def _pack_plan(layer_parts, last: int, bf16: bool, backward: bool, device: str,
             continue
         w = torch.arange(off, off + sum(parts) * out).view(sum(parts), out)
         n_fwd = out - 1 if i == last else out  # the density column goes apart
-        add(w[:, :n_fwd], parts, (n_fwd,), fwd)
+        if forward:
+            add(w[:, :n_fwd], parts, (n_fwd,), fwd)
         if backward:
             add(w.t(), (out,), parts, bwd)
     return torch.cat(pieces).to(device), fwd, bwd
@@ -237,13 +238,14 @@ def packed_weights(params: nerf_mlp.NerfMLP, cfg: nerf_mlp.NerfMLPConfig, dev,
 
 
 def pack_layers(weights, layer_parts, last: int, bf16: bool, backward: bool, dev,
-                first: int = 0):
+                first: int = 0, forward: bool = True):
     """Every layer's forward B (W, without the density column of layer
-    `last`) and with `backward` its backward B (W^T), for layers first..,
-    each as `pack_b` packs it, gathered in one call from the weights
-    flattened in layer order by `_pack_plan`. Returns (fwd, bwd or None)."""
+    `last`; with `forward`) and with `backward` its backward B (W^T), for
+    layers first.., each as `pack_b` packs it, gathered in one call from the
+    weights flattened in layer order by `_pack_plan`. Returns (fwd or None,
+    bwd or None)."""
     index, fwd_at, bwd_at = _pack_plan(tuple(layer_parts), last, bf16, backward,
-                                       str(torch.device(dev)), first)
+                                       str(torch.device(dev)), first, forward)
     ws = [w.detach().to(dev, torch.float32).reshape(-1) for w in weights]
     flat = torch.cat(ws + [ws[0].new_zeros(1)])
     if bf16:
@@ -253,7 +255,7 @@ def pack_layers(weights, layer_parts, last: int, bf16: bool, backward: bool, dev
         src = torch.cat([hi, tf32_round(flat - hi)])
     packed = src[index]
     views = lambda at: [packed[o:o + math.prod(shape)].view(shape) for o, shape in at]
-    return views(fwd_at), (views(bwd_at) if backward else None)
+    return (views(fwd_at) if forward else None), (views(bwd_at) if backward else None)
 
 
 # The render kernel's last packed weights, by the parameters they came from:

@@ -162,11 +162,11 @@ def test_fused_chain_autograd_function_wiring(monkeypatch):
     """`FusedChain` (the kernels' autograd function) hands each gradient to
     its tensor: driven on the CPU with the kernel wrappers replaced by the
     plain versions."""
-    def fwd(x, layers, bf16):
+    def fwd(x, layers, bf16, packed=None):
         tfused.fused_mlp_fwd_cuda.launches += 1
         return tfused.fused_chain_reference(x, layers, torch.bfloat16 if bf16 else None)
 
-    def bwd(x, layers, g, bf16):
+    def bwd(x, layers, g, bf16, packed=None):
         tfused.fused_mlp_bwd_cuda.launches += 1
         return tfused.fused_chain_bwd_reference(x, layers, g, torch.bfloat16 if bf16 else None)
 
@@ -178,7 +178,7 @@ def test_fused_chain_autograd_function_wiring(monkeypatch):
     wb = [t.requires_grad_(True) for layer in port for t in (layer.w, layer.b)]
     x = torch.randn((11, dims[0]), generator=torch.Generator().manual_seed(9),
                     requires_grad=True)
-    y = tfused.FusedChain.apply(x, False, *wb)
+    y = tfused.FusedChain.apply(x, False, True, *wb)
     grads = torch.autograd.grad(y.square().sum(), [x, *wb])
     want = torch.autograd.grad(tfused.fused_chain_reference(x, port).square().sum(), [x, *wb])
     assert fwd.launches == 1 and bwd.launches == 1
