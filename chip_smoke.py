@@ -108,7 +108,31 @@ Phases, each raising on failure:
      hands them) against their plain versions and the cuBLAS `addmm` chain
      and their bounds (3xTF32 too), K11 against its plain version and K2 at 8192 x
      128, the Mip-NeRF step with `FusedNerfMLPDef` against `NerfMLPDef`, and
-     profile one step of each.
+     profile one step of each;
+ 26. the occupancy grid at full width (north_star_occ_S32: R 64, 64 coarse
+     bins, 32 fine samples, batch 8192): its fused step (K4) against the
+     plain step at 1024 rays (as phase 8), bf16 and fp32, step 0 refreshing
+     the grid after the update; the
+     refresh against a float64 refresh with the same jitter;
+     `run_barf --occ_grid_resolution 64 --fused_kernel` (train PSNR rises by
+     > 1 dB in 48 steps; 32 steps + `--resume` bitwise equal to 48 in one go,
+     under torch's deterministic algorithms; the grid in the checkpoint);
+     `render_views --serve_block 1 | 4` on its checkpoint through K2, and a
+     serve_block 4 crop against the plain CPU path;
+ 27. block-coarse BARF: the north_star_S32_blk4 (K1 / K3 on every 4th ray)
+     and north_star_occ_S32_blk4 fused steps, bf16 and fp32, against the same
+     steps with every kernel's plain version (`plain_kernels`);
+     `render_block_coarse` with block 1 bitwise equal to the deterministic
+     `forward` (kernels on) and with block 4 against its plain version;
+     `run_barf --train_coarse_block 4` trains and resumes;
+ 28. block-coarse GARF (garf_fused_blk4): the fused step with
+     train_coarse_block 4 against its plain-kernel version (gauss fp32, gabor
+     bf16); `garf_main --train_coarse_block 4` trains;
+ 29. train rays/s of each slice config against its counterpart (A, B, B, A;
+     a 16-step window with one refresh for BARF at 8192 rays, 4 steps for
+     GARF at 4096), the refresh alone and its share of the window, a profile
+     of the occupancy steps (idle share), serving rays/s at 8192-ray chunks
+     with serve_block 1 and 4.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -120,6 +144,7 @@ device it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -534,79 +559,94 @@ def train_batch(n: int, n_images: int, gen: torch.Generator, dev) -> dict:
             "pixel_width": torch.full((n, 1), 1e-3, device=dev)}
 
 
+def step_pair(name: str, init_state, params, batch, steps, scalars, bf16: bool, dev,
+              seed: int, gate: bool = True) -> None:
+    """Two train steps from copies of `params`, one batch and one generator
+    seed: `steps` = (the reference step, the step under test). Holds the
+    second's loss, every gradient it hands to Adam and the update of every
+    parameter and buffer (the occupancy grid's refresh included) against
+    the first's, at phase 8's tolerances. A gradient or update that is 0 in
+    the reference is left out of the relative norms. With gate=False the
+    errors are only logged (a witness, not a check)."""
+    import copy
+
+    before = {k: v.clone() for k, v in params.state_dict().items()}
+    out, grads = [], []
+    for step in steps:
+        state = init_state(copy.deepcopy(params))
+        captured = {}
+
+        def capture_then_step(state=state, captured=captured, adam_step=state.optimizer.step):
+            # keep the gradients Adam is handed
+            captured.update({k: p.grad.clone() for k, p in state.params.named_parameters()
+                             if p.grad is not None})
+            adam_step()
+
+        state.optimizer.step = capture_then_step
+        state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(seed),
+                              *scalars)
+        out.append((float(metrics["loss"]), state.params.state_dict(),
+                    bool(metrics["grads_finite"])))
+        grads.append(captured)
+    torch.cuda.synchronize()
+    (ref_loss, ref_sd, ref_ok), (loss, sd, ok) = out
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    require(set(grads[0]) == set(grads[1]) and grads[0],
+            f"{name}: the two steps set gradients on different parameters")
+    grad_errs = {k: rel_norm(grads[1][k], g) for k, g in grads[0].items()
+                 if float(g.norm()) > 0}
+    worst_g = max(grad_errs, key=grad_errs.get)
+    upd = {k: rel_norm(sd[k] - before[k], ref_sd[k] - before[k]) for k in before
+           if float((ref_sd[k] - before[k]).norm()) > 0}
+    worst = max(upd, key=upd.get)
+    log(f"{name}: loss {loss:.6f} reference {ref_loss:.6f} rel err {loss_err:.3e} (tol "
+        f"{TOL_STEP_LOSS[bf16]}); gradient rel norm err worst {worst_g} "
+        f"{grad_errs[worst_g]:.3e} over {len(grad_errs)} tensors (tol {TOL_STEP_GRAD[bf16]}); "
+        f"update rel norm err worst {worst} {upd[worst]:.3e} over {len(upd)} tensors (tol "
+        f"{TOL_STEP_UPDATE[bf16]})" + ("" if gate else ", logged only"))
+    if not gate:
+        return
+    require(ok and ref_ok, f"{name}: non-finite gradients")
+    require(loss_err <= TOL_STEP_LOSS[bf16], f"{name}: loss err {loss_err}")
+    for k, v in grad_errs.items():
+        require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v), f"{name}: gradient of {k} err {v}")
+    for k, v in upd.items():
+        require(v <= TOL_STEP_UPDATE[bf16], f"{name}: update of {k} err {v}")
+
+
+def perturbed_camera(params, dev, seed: int):
+    """`params` with the camera's rotation away from zero, so its gradients
+    are general."""
+    with torch.no_grad():
+        params.camera.rotation.normal_(0.0, 0.05, generator=torch.Generator(dev).manual_seed(seed))
+    return params
+
+
 def phase_train_step(dev):
     """train_step_fused against train_step from one state, batch and seed."""
-    import copy
+    import functools
 
     from nerf_experiments_tpu_torch.systems import barf as barf_sys
 
     for name, _, cfg in train_configs():
         if name == "dense bf16":
             continue
-        bf16 = cfg.radiance.compute_dtype is not None
-        params = barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev)
-        with torch.no_grad():  # a camera away from zero, so its gradients are general
-            params.camera.rotation.normal_(0.0, 0.05, generator=torch.Generator(dev).manual_seed(9))
+        params = perturbed_camera(barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev),
+                                  dev, 9)
         batch = train_batch(1024, cfg.n_training_images,
                             torch.Generator(device=dev).manual_seed(10), dev)
-        before = {k: v.clone() for k, v in params.state_dict().items()}
-        out, grads = {}, {}
-        for fused in (False, True):
-            state = barf_sys.init_state(cfg, copy.deepcopy(params))
-            grads[fused] = {}
-            adam_step = state.optimizer.step
-
-            def capture_then_step():  # keep the gradients Adam is handed
-                grads[fused].update({k: p.grad.clone()
-                                     for k, p in state.params.named_parameters()
-                                     if p.grad is not None})
-                adam_step()
-
-            state.optimizer.step = capture_then_step
-            step = barf_sys.make_train_step(cfg, fused=fused)
-            gen = torch.Generator(device=dev).manual_seed(11)
-            state, metrics = step(state, batch, gen, 7.5, 2.5, 0.0)
-            out[fused] = (float(metrics["loss"]), state.params.state_dict(),
-                          bool(metrics["grads_finite"]))
-        torch.cuda.synchronize()
-        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
-        require(set(grads[True]) == set(grads[False]) and grads[False],
-                f"{name}: fused and plain steps set gradients on different parameters")
-        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]}
-        worst_g = max(grad_errs, key=grad_errs.get)
-        upd = {k: rel_norm(out[True][1][k] - before[k], out[False][1][k] - before[k])
-               for k in before}
-        worst = max(upd, key=upd.get)
-        log(f"train step {name}: loss fused {out[True][0]:.6f} plain {out[False][0]:.6f} "
-            f"rel err {loss_err:.3e} (tol {TOL_STEP_LOSS[bf16]}); gradient rel norm err "
-            f"worst {worst_g} {grad_errs[worst_g]:.3e} over {len(grad_errs)} tensors (tol "
-            f"{TOL_STEP_GRAD[bf16]}); Adam update rel norm err worst {worst} "
-            f"{upd[worst]:.3e} over {len(upd)} tensors (tol {TOL_STEP_UPDATE[bf16]})")
-        require(out[True][2] and out[False][2], f"{name}: non-finite gradients")
-        require(loss_err <= TOL_STEP_LOSS[bf16], f"{name}: loss err {loss_err}")
-        for k, v in grad_errs.items():
-            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v),
-                    f"{name}: gradient of {k} err {v}")
-        for k, v in upd.items():
-            require(v <= TOL_STEP_UPDATE[bf16], f"{name}: update of {k} err {v}")
+        step_pair(f"train step {name}, fused against plain", functools.partial(
+            barf_sys.init_state, cfg), params, batch,
+            (barf_sys.make_train_step(cfg), barf_sys.make_train_step(cfg, fused=True)),
+            (7.5, 2.5, 0.0), cfg.radiance.compute_dtype is not None, dev, 11)
 
 
 def phase_training(dev, workdir):
     """run_barf.main --fused_kernel end to end, with launches counted."""
     from nerf_experiments_tpu_torch.experiments import render_views, run_barf
-    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
-    from nerf_experiments_tpu_torch.ops.train_megakernel import (
-        flagship_render, flagship_train_grads)
 
     def counted(argv):
-        for fn in (render_fwd_cuda, render_bwd_cuda, flagship_render, flagship_train_grads):
-            fn.launches = 0
-        state = run_barf.main(argv)
-        torch.cuda.synchronize()
-        return state, {"render_fwd": render_fwd_cuda.launches,
-                       "render_bwd": render_bwd_cuda.launches,
-                       "flagship_render": flagship_render.launches,
-                       "flagship_train": flagship_train_grads.launches}
+        return counted_run(run_barf.main, argv)
 
     # dense flagship, the JAX package's end-to-end test at full width
     out = os.path.join(workdir, "train_dense")
@@ -1037,60 +1077,20 @@ def phase_garf_train_step(dev):
     """The GARF `train_step_fused` against `train_step` from one state, batch
     and generator seed (gauss fp32, gabor bf16 at gamma 0.37): the loss,
     every gradient handed to Adam, and the update."""
-    import copy
+    import functools
 
     from nerf_experiments_tpu_torch.systems import garf_system
 
     for activation, bf16 in (("gauss", False), ("gabor", True)):
         cfg = garf_system_cfg(activation, bf16)
-        params = garf_system.init(torch.Generator().manual_seed(30), cfg).to(dev)
-        with torch.no_grad():  # a camera away from zero, so its gradients are general
-            params.camera.rotation.normal_(0.0, 0.05,
-                                           generator=torch.Generator(dev).manual_seed(31))
+        params = perturbed_camera(
+            garf_system.init(torch.Generator().manual_seed(30), cfg).to(dev), dev, 31)
         batch = garf_batch(1024, torch.Generator(device=dev).manual_seed(32), dev)
-        before = {k: v.clone() for k, v in params.state_dict().items()}
-        out, grads = {}, {}
-        for fused in (False, True):
-            state = garf_system.init_state(cfg, copy.deepcopy(params))
-            grads[fused] = {}
-            adam_step = state.optimizer.step
-
-            def capture_then_step():  # keep the gradients Adam is handed
-                grads[fused].update({k: p.grad.clone()
-                                     for k, p in state.params.named_parameters()})
-                adam_step()
-
-            state.optimizer.step = capture_then_step
-            step = (garf_system.make_train_step_fused(cfg) if fused
-                    else garf_system.make_train_step(cfg))
-            state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(33),
-                                  0.37)
-            out[fused] = (float(metrics["loss"]), state.params.state_dict(),
-                          bool(metrics["grads_finite"]))
-        torch.cuda.synchronize()
-        name = f"{activation} {'bf16' if bf16 else 'fp32'}"
-        loss_err = abs(out[True][0] - out[False][0]) / abs(out[False][0])
-        require(set(grads[True]) == set(grads[False]) and grads[False],
-                f"GARF {name}: fused and plain steps set gradients on different parameters")
-        grad_errs = {k: rel_norm(grads[True][k], grads[False][k]) for k in grads[False]
-                     if float(grads[False][k].norm()) > 0}
-        worst_g = max(grad_errs, key=grad_errs.get)
-        upd = {k: rel_norm(out[True][1][k] - before[k], out[False][1][k] - before[k])
-               for k in before if float((out[False][1][k] - before[k]).norm()) > 0}
-        worst = max(upd, key=upd.get)
-        log(f"GARF train step {name} (1024 rays, 64 + 192 samples): loss fused "
-            f"{out[True][0]:.6f} plain {out[False][0]:.6f} rel err {loss_err:.3e} (tol "
-            f"{TOL_STEP_LOSS[bf16]}); gradient rel norm err worst {worst_g} "
-            f"{grad_errs[worst_g]:.3e} over {len(grad_errs)} tensors (tol "
-            f"{TOL_STEP_GRAD[bf16]}); Adam update rel norm err worst {worst} {upd[worst]:.3e} "
-            f"over {len(upd)} tensors (tol {TOL_STEP_UPDATE[bf16]})")
-        require(out[True][2] and out[False][2], f"GARF {name}: non-finite gradients")
-        require(loss_err <= TOL_STEP_LOSS[bf16], f"GARF {name}: loss err {loss_err}")
-        for k, v in grad_errs.items():
-            require(v <= TOL_STEP_GRAD[bf16] and math.isfinite(v),
-                    f"GARF {name}: gradient of {k} err {v}")
-        for k, v in upd.items():
-            require(v <= TOL_STEP_UPDATE[bf16], f"GARF {name}: update of {k} err {v}")
+        step_pair(f"GARF train step {activation} {'bf16' if bf16 else 'fp32'} (1024 rays, "
+                  f"64 + 192 samples), fused against plain",
+                  functools.partial(garf_system.init_state, cfg), params, batch,
+                  (garf_system.make_train_step(cfg), garf_system.make_train_step_fused(cfg)),
+                  (0.37,), bf16, dev, 33)
 
 
 def phase_garf_training(dev, workdir):
@@ -1099,18 +1099,9 @@ def phase_garf_training(dev, workdir):
     gauss fp32 (train PSNR must rise by > 1 dB), then `--resume`; short
     gabor bf16 and sarf runs keep the loss finite."""
     from nerf_experiments_tpu_torch.experiments import garf_main
-    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
-        garf_radiance_render, garf_radiance_train_grads)
-    from nerf_experiments_tpu_torch.ops.render_cuda import render_fwd_cuda
 
     def counted(argv):
-        for fn in (render_fwd_cuda, garf_radiance_render, garf_radiance_train_grads):
-            fn.launches = 0
-        state = garf_main.main(argv)
-        torch.cuda.synchronize()
-        return state, {"garf_train": garf_radiance_train_grads.launches,
-                       "garf_render": garf_radiance_render.launches,
-                       "render_fwd": render_fwd_cuda.launches}
+        return counted_run(garf_main.main, argv)
 
     def rows(out):
         return [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
@@ -1388,56 +1379,69 @@ def phase_hash_backward(dev):
 
 
 def fixed_point_precision(table, cfg, x, g, got, hash_kind, label: str) -> dict:
-    """K8's d_table `got` for one launch's (x, g) against the exact sums of
-    its fp32 terms (`hashgrid.dtable_terms` added in float64) and against the
-    plain fp32 scatter (`plain_hash_grads`), element by element: K8's quantum
-    2^-s is absolute, the plain sum's error relative. Logs the elements that
-    the plain backward gives as nonzero and K8 as 0, and per band of |exact|
-    / max|g| the worst and median relative error of both. Requires every
-    element within its terms x 2^-(s+1) (and fp32's last rounding) of the
-    exact sum."""
+    """K8's d_table `got` for one launch's (x, g) against the sums of its fp32
+    terms in float64 (`hashgrid.dtable_terms`) and against the plain fp32
+    scatter (`plain_hash_grads`), element by element: K8 cuts every term
+    into up to four int64 words, down to a quantum 2^-(s+(W-1)K) (absolute),
+    the plain sum's error is relative. Logs the elements that the plain
+    backward gives as nonzero and K8 as 0, the smallest |exact| / max|g| of
+    the plain backward's nonzero elements, and per band of |exact| / max|g|
+    the worst and median relative error of both. Requires every element
+    within its terms x 2^-(s+(W-1)K+1) of the exact sum, plus fp32's last
+    rounding and the float64 sum's own (2^-46 of its terms' |c|), and no
+    element that the plain backward keeps to be 0 in K8 (ROADMAP C4)."""
     from nerf_experiments_tpu_torch.ops import hashgrid
 
     x, g = x.detach(), g.detach()
     gmax = float(g.abs().max())
     s = hashgrid.fixed_point_shift(gmax, x.shape[0], cfg.dim)
+    k = hashgrid.fixed_point_lo_shift(x.shape[0], cfg.dim)
+    words = hashgrid.fixed_point_words(s, k)
+    last = s + (words - 1) * k
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
     exact = torch.zeros((L * T, F), dtype=torch.float64, device=x.device)
+    mass = torch.zeros_like(exact)
     terms = torch.zeros((L * T,), dtype=torch.float64, device=x.device)
     for rows, c in hashgrid.dtable_terms(cfg, x, g, hash_kind):
         exact.index_add_(0, rows, c.double())
+        mass.index_add_(0, rows, c.double().abs())
         terms.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
     plain = plain_hash_grads(table, cfg, x, g, hash_kind)[0].reshape(-1).double()
-    got, exact = got.reshape(-1).double(), exact.reshape(-1)
+    got, exact, mass = got.reshape(-1).double(), exact.reshape(-1), mass.reshape(-1)
     terms = terms[:, None].expand(-1, F).reshape(-1)
     err = (got - exact).abs()
-    allowed = terms * 2.0 ** -(s + 1) * (1 + 2.0**-22) + exact.abs() * 2.0**-23
+    allowed = (terms * 2.0 ** -(last + 1) * (1 + 2.0**-22) + exact.abs() * 2.0**-23
+               + mass * 2.0**-46)
     require(bool((err <= allowed).all()), f"K8 {label}: an element beyond its quantum")
     lost = int(((plain != 0) & (got == 0)).sum())
     nonzero = int((plain != 0).sum())
-    out = {"shift": s, "max_abs_g": gmax, "plain_nonzero": nonzero, "k8_zero_of_those": lost,
-           "bands": {}}
     ratio = exact.abs() / gmax
-    edges = (float("inf"), 2.0**-17, 2.0**-30, 2.0**-40, 0.0)
+    smallest = float(ratio[(plain != 0) & (exact != 0)].min())
+    out = {"shift": s, "lo_shift": k, "words": words, "max_abs_g": gmax,
+           "plain_nonzero": nonzero, "k8_zero_of_those": lost, "smallest_ratio": smallest,
+           "bands": {}}
+    edges = (float("inf"), 2.0**-17, 2.0**-30, 2.0**-40, 2.0**-60, 0.0)
     parts = []
     for hi, lo in zip(edges, edges[1:]):
         sel = (ratio < hi) & (ratio >= lo) & (exact != 0)
-        k = int(sel.sum())
-        if k == 0:
+        n_sel = int(sel.sum())
+        if n_sel == 0:
             continue
         rel_k8 = (err[sel] / exact[sel].abs())
         rel_plain = ((plain[sel] - exact[sel]).abs() / exact[sel].abs())
-        band = {"elements": k, "k8_zero": int((got[sel] == 0).sum()),
+        band = {"elements": n_sel, "k8_zero": int((got[sel] == 0).sum()),
                 "k8_worst": float(rel_k8.max()), "k8_median": float(rel_k8.median()),
                 "plain_worst": float(rel_plain.max()), "plain_median": float(rel_plain.median())}
         out["bands"][f"[{lo:.3g}, {hi:.3g})"] = band
-        parts.append(f"|exact|/max|g| in [{lo:.3g}, {hi:.3g}): {k} elements, K8 0 in "
+        parts.append(f"|exact|/max|g| in [{lo:.3g}, {hi:.3g}): {n_sel} elements, K8 0 in "
                      f"{band['k8_zero']}, rel err K8 worst {band['k8_worst']:.3e} median "
                      f"{band['k8_median']:.3e}, plain worst {band['plain_worst']:.3e} median "
                      f"{band['plain_median']:.3e}")
-    log(f"K8 fixed point on {label} ({x.shape[0]} points, max|g| {gmax:.6e}, s {s}): "
-        f"{lost} of the plain backward's {nonzero} nonzero d_table elements are 0 in K8 "
-        f"({lost / max(nonzero, 1):.3e}); " + "; ".join(parts))
+    log(f"K8 fixed point on {label} ({x.shape[0]} points, max|g| {gmax:.6e}, s {s}, K {k}, "
+        f"{words} words, last quantum 2^-{last}): {lost} of the plain backward's {nonzero} "
+        f"nonzero d_table elements are 0 in K8 (k8_zero_of_those {lost}); smallest "
+        f"|exact|/max|g| of those {smallest:.3e}; " + "; ".join(parts))
+    require(lost == 0, f"K8 {label}: {lost} elements the plain backward keeps are 0 in K8")
     return out
 
 
@@ -2348,6 +2352,625 @@ def phase_mip_timing(dev):
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds: HBM, fp32
 # on the CUDA cores, and the dense tensor-core rates of TF32 and bf16.
+# ---- the occupancy grid and block-coarse training and serving (phases 26-29)
+
+# north_star_occ_S32's grid (bench.py:66-130, :413-445): R 64 (262,144
+# cells), 64 coarse bins, a refresh every 16 steps; 32 fine samples
+OCC_S32 = ["--samples_per_ray", "32", "--occ_grid_resolution", "64"]
+BLK4 = ["--train_coarse_block", "4", "--fused_kernel"]
+# the slice's BARF configs at full width: north_star_occ_S32 and the blk4
+# rows in bf16, and their fp32 counterparts (K4's FMA route)
+SLICE_CONFIGS = {
+    "north_star_S32 bf16": NORTHSTAR,
+    "north_star_occ_S32 bf16": OCC_S32 + ["--bf16"],
+    "north_star_S32_blk4 bf16": NORTHSTAR + BLK4,
+    "north_star_occ_S32_blk4 bf16": OCC_S32 + ["--bf16"] + BLK4,
+    "north_star_S32 fp32": NORTHSTAR[:-1],
+    "north_star_occ_S32 fp32": OCC_S32,
+    "north_star_S32_blk4 fp32": NORTHSTAR[:-1] + BLK4,
+    "north_star_occ_S32_blk4 fp32": OCC_S32 + BLK4,
+}
+A_POS, A_DIR = 10.0, 4.0  # every level on, the serving direction alpha
+STEP_RAYS = 1024  # the rays of a step comparison (phase 8's)
+
+
+def slice_config(name: str):
+    from nerf_experiments_tpu_torch.experiments import run_barf
+
+    args = run_barf.parse_args(["--image_size", str(IMAGE_SIZE), "--seed", "7"]
+                               + SLICE_CONFIGS[name])
+    return run_barf.build_config(args)[0]
+
+
+def launch_counters() -> dict:
+    from nerf_experiments_tpu_torch.ops.garf_megakernel import (
+        garf_radiance_render, garf_radiance_train_grads)
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_bwd_cuda, render_fwd_cuda
+    from nerf_experiments_tpu_torch.ops.train_megakernel import (
+        flagship_render, flagship_train_grads)
+
+    return {"render_fwd": render_fwd_cuda, "render_bwd": render_bwd_cuda,
+            "flagship_render": flagship_render, "flagship_train": flagship_train_grads,
+            "garf_train": garf_radiance_train_grads, "garf_render": garf_radiance_render}
+
+
+def counted_run(main, argv):
+    """`main(argv)` with every count set to 0 just before and read just
+    after: (its result, {kernel: launches})."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, {k: fn.launches for k, fn in counters.items()}
+
+
+def add_launches(total: dict, launches: dict) -> dict:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+@contextlib.contextmanager
+def plain_kernels(compositing: bool = True):
+    """The flagship train and render kernels and the GARF train kernel (and,
+    with `compositing`, the compositing kernels) replaced by their plain
+    versions on any device: the reference of a step or render that has no
+    plain counterpart of its own (block-coarse)."""
+    from unittest import mock
+
+    from nerf_experiments_tpu_torch.ops import garf_megakernel, render, train_megakernel
+    from nerf_experiments_tpu_torch.systems import barf, garf_system
+
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+                (barf, "flagship_train_grads", train_megakernel.flagship_train_grads_reference),
+                (barf, "flagship_render", train_megakernel.flagship_render_reference),
+                (garf_system, "garf_radiance_train_grads",
+                 garf_megakernel.garf_radiance_train_grads_reference),
+                (render, "render_rays_auto", render.render_rays if compositing else None)):
+            if plain is not None:
+                stack.enter_context(mock.patch.object(module, name, plain))
+        yield
+
+
+def under_plain_kernels(fn, compositing: bool = True):
+    def run(*args, **kw):
+        with plain_kernels(compositing):
+            return fn(*args, **kw)
+    return run
+
+
+@contextlib.contextmanager
+def fine_bins(record=None, pinned=None):
+    """`sampling.sample_pdf_weighted_intervals` (the fine bins' resampling)
+    with its bins appended to the list `record`, or replaced by `pinned`
+    (t_start, t_end)."""
+    from unittest import mock
+
+    from nerf_experiments_tpu_torch.ops import sampling
+
+    real = sampling.sample_pdf_weighted_intervals
+
+    def resample(*args, **kw):
+        if pinned is not None:
+            return pinned
+        out = real(*args, **kw)
+        record.append(tuple(t.clone() for t in out))
+        return out
+
+    with mock.patch.object(sampling, "sample_pdf_weighted_intervals", resample):
+        yield
+
+
+def with_fine_bins(fn, **kw):
+    def run(*args, **fkw):
+        with fine_bins(**kw):
+            return fn(*args, **fkw)
+    return run
+
+
+def check_coarse_compositing(cfg, params, batch, dev, name: str) -> None:
+    """K1 / K3 on the block-coarse proposal stage's own inputs (every 4th ray
+    of the batch, 64 coarse samples through the proposal net) against the
+    plain compositing: rgb and weights forward, the gradients of the
+    densities and colours for random cotangents; max abs error over the
+    reference's max abs value, TOL_K3."""
+    from nerf_experiments_tpu_torch.cameras import calibration
+    from nerf_experiments_tpu_torch.ops import render, sampling
+    from nerf_experiments_tpu_torch.ops.render_cuda import render_rays_cuda
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    blk = cfg.train_coarse_block
+    with torch.no_grad():
+        origs, dirs = calibration.training_transform_rays(
+            params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
+        origs, dirs = origs[::blk].contiguous(), dirs[::blk].contiguous()
+        ts, te = sampling.sample_stratified(
+            torch.Generator(device=dev).manual_seed(46), origs.shape[0],
+            cfg.samples_per_ray_proposal, cfg.near, cfg.far, cfg.uniform_sampling_strategy,
+            cfg.uniform_sampling_offset_size, device=dev)
+        dens, rgb = barf_sys._eval_model(*barf_sys._proposal_model(params, cfg), origs, dirs,
+                                         ts, te, batch["pixel_width"][::blk], 7.5, 2.5,
+                                         cfg.integration_strategy)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    g_rgb = torch.randn(rgb.shape[:1] + (3,), generator=gen, device=dev)
+    g_w = torch.randn(dens.shape, generator=gen, device=dev)
+    out = {}
+    for tag, fn in (("kernel", render_rays_cuda), ("plain", render.render_rays)):
+        d, c = dens.float().clone().requires_grad_(True), rgb.float().clone().requires_grad_(True)
+        fwd = fn(d, c, te - ts)
+        out[tag] = (*(t.detach() for t in fwd), *torch.autograd.grad(fwd, (d, c), (g_rgb, g_w)))
+    errs = {k: max_err(a, b) / max(float(b.abs().max()), 1e-30)
+            for k, a, b in zip(("rgb", "weights", "d_densities", "d_colours"),
+                               out["kernel"], out["plain"])}
+    log(f"K1 / K3 on the {name} coarse stage ({dens.shape[0]} rays x {dens.shape[1]}): "
+        f"max abs err / max abs " + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+        + f", tol {TOL_K3}")
+    for k, v in errs.items():
+        require(v <= TOL_K3 and math.isfinite(v), f"{name} coarse compositing {k} err {v}")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (the camera gather's backward sums
+    without atomics), warnings only where an op has none: for the bitwise
+    resume checks. Logs which ops warned."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught
+                  if "deterministic" in str(w.message)})
+    if ops:
+        log(f"  deterministic mode: no deterministic version of {ops}")
+
+
+def check_refresh(cfg, params, dev, name: str) -> None:
+    """The occupancy refresh (`occgrid.update_grid` over the radiance net's
+    density at 262,144 jittered cell centres, through `_occ_density_fn`)
+    against the same refresh with the net in float64 (TF32 off) and the same
+    jitter. Both refresh a zero grid, so every cell takes the net's density
+    (softplus: positive); at least 0.999 of the cells must. A random net's
+    densities sit at softplus(~0) = 0.69 with a spread of ~0.2 %, so the error
+    is taken relative to the reference's spread about its mean, ||got - want||
+    / ||want - mean(want)||, which a norm relative to the densities
+    themselves would hide: fp32 within TOL_FP32, bf16 within TOL_K4_BF16 (its
+    weights and activations rounded to bf16)."""
+    import copy
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.ops import occgrid
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    u = torch.rand((cfg.occ.n_cells, 3), generator=torch.Generator(dev).manual_seed(40),
+                   device=dev)
+    grid = torch.zeros(cfg.occ.n_cells, device=dev)
+    cfg64 = dataclasses.replace(cfg, radiance=dataclasses.replace(cfg.radiance,
+                                                                  compute_dtype=None))
+    with torch.no_grad():
+        got = occgrid.update_grid(grid, cfg.occ, barf_sys._occ_density_fn(
+            cfg, params.radiance, A_POS, A_DIR), u=u)
+        want = occgrid.update_grid(grid.double(), cfg64.occ, barf_sys._occ_density_fn(
+            cfg64, copy.deepcopy(params.radiance).double(), A_POS, A_DIR), u=u.double())
+    bf16 = cfg.radiance.compute_dtype is not None
+    tol = TOL_K4_BF16 if bf16 else TOL_FP32
+    spread = want - want.mean()
+    err = float((got.double() - want).norm() / spread.norm().clamp_min(1e-30))
+    moved = float((got > 0).float().mean())
+    log(f"occupancy refresh {name} ({cfg.occ.n_cells} cells, from a zero grid) against "
+        f"float64: {moved:.4f} of the cells took the net's density; densities mean "
+        f"{float(want.mean()):.4f}, spread (std / mean) {float(spread.std() / want.mean()):.3e}; "
+        f"err / spread {err:.3e} (tol {tol}); rel norm err {rel_norm(got, want):.3e}")
+    require(moved >= 0.999, f"refresh {name}: only {moved} of the cells took the density")
+    require(err <= tol and math.isfinite(err), f"refresh {name}: err {err}")
+
+
+def check_step_refresh(cfg, params, batch, dev, seed: int, name: str) -> None:
+    """The refresh inside the fused step at step 0, from a zero grid: the
+    grid the step leaves is bitwise the refresh of its updated net at the
+    step's alphas with the jitter stream the step derives (mix_seed(seed,
+    0x0CC)), and every cell holds the net's density."""
+    import copy
+
+    from nerf_experiments_tpu_torch.ops import occgrid
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.utils.seeds import mix_seed
+
+    state = barf_sys.init_state(cfg, copy.deepcopy(params))
+    state.params.occ.zero_()
+    state, _ = barf_sys.make_train_step(cfg, fused=True)(
+        state, batch, torch.Generator(device=dev).manual_seed(seed), 7.5, 2.5, 0.0)
+    with torch.no_grad():
+        again = occgrid.update_grid(
+            torch.zeros_like(state.params.occ), cfg.occ,
+            barf_sys._occ_density_fn(cfg, state.params.radiance, 7.5, 2.5),
+            torch.Generator(dev).manual_seed(mix_seed(seed, 0x0CC)))
+    same = torch.equal(state.params.occ, again)
+    filled = float((state.params.occ > 0).float().mean())
+    log(f"fused step {name} at step 0 from a zero grid: the grid it leaves is bitwise the "
+        f"refresh of its updated net: {same}; {filled:.4f} of the cells hold a density")
+    require(same and filled >= 0.999, f"{name}: the step's refresh")
+
+
+def occupied(params, cfg):
+    """`params` with an occupancy grid that is not uniform: a refresh of an
+    empty grid from a dense ball of radius 0.6 at the origin (a random net's
+    density fills every cell about alike)."""
+    from nerf_experiments_tpu_torch.ops import occgrid
+
+    def ball(pos):
+        return torch.where(pos.norm(dim=-1) < 0.6, 50.0, 0.0)
+
+    with torch.no_grad():
+        params.occ.copy_(occgrid.update_grid(torch.zeros_like(params.occ), cfg.occ, ball,
+                                             torch.Generator(params.occ.device).manual_seed(42)))
+    return params
+
+
+def phase_occ(dev, workdir):
+    """The occupancy grid at full width: the north_star_occ_S32 fused step
+    (K4) against the plain step (bf16, fp32), the refresh against float64,
+    `run_barf --occ_grid_resolution 64 --fused_kernel` (train PSNR rises; a
+    resume bitwise equal to the uninterrupted run; the grid in the
+    checkpoint) and `render_views --serve_block 1 | 4` on its checkpoint."""
+    import functools
+
+    import numpy as np
+
+    from nerf_experiments_tpu_torch.experiments import render_views, run_barf
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+
+    for name in ("north_star_occ_S32 bf16", "north_star_occ_S32 fp32"):
+        cfg = slice_config(name)
+        params = perturbed_camera(barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev),
+                                  dev, 9)
+        batch = train_batch(STEP_RAYS, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(10), dev)
+        with torch.no_grad():  # the step-0 refresh then writes the net's density everywhere
+            params.occ.zero_()
+        step_pair(f"train step {name} (step 0 from a zero grid: the refresh follows the "
+                  f"update), fused against plain", functools.partial(barf_sys.init_state, cfg),
+                  params, batch,
+                  (barf_sys.make_train_step(cfg), barf_sys.make_train_step(cfg, fused=True)),
+                  (7.5, 2.5, 0.0), cfg.radiance.compute_dtype is not None, dev, 11)
+        check_step_refresh(cfg, params, batch, dev, 11, name)
+        check_refresh(cfg, params, dev, name)
+
+    flags = SLICE_CONFIGS["north_star_occ_S32 bf16"]
+    base = ["--image_size", str(IMAGE_SIZE), "--batch_size", str(N_RAYS), "--seed", "7",
+            "--log_every_n_steps", "8", "--alpha_decay_start_step", "0",
+            "--alpha_decay_end_step", "1", "--fused_kernel", "--device", str(dev),
+            "--checkpoint_every_n_epochs", "100"] + flags
+    steps, split = 48, 32
+    straight_dir, split_dir = (os.path.join(workdir, d) for d in ("occ_straight", "occ_split"))
+    total = {}
+    with deterministic():
+        straight, launches = counted_run(run_barf.main, base + [
+            "--max_steps", str(steps), "--out_dir", straight_dir])
+        first, _ = counted_run(run_barf.main, base + [
+            "--max_steps", str(split), "--out_dir", split_dir])
+        resumed, resumed_launches = counted_run(run_barf.main, base + [
+            "--max_steps", str(steps), "--out_dir", split_dir, "--resume"])
+    add_launches(total, launches)
+    rows = [json.loads(line) for line in open(os.path.join(straight_dir, "metrics.jsonl"))]
+    psnrs = [r["psnr"] for r in rows if "psnr" in r and math.isfinite(r["psnr"])]
+    rates = [r["train_rays_per_sec"] for r in rows if "train_rays_per_sec" in r]
+    blob = torch.load(os.path.join(split_dir, "ckpt", f"ckpt_{split}.pt"), weights_only=True)
+    diff = [k for (k, a), b in zip(resumed.params.state_dict().items(),
+                                   straight.params.state_dict().values()) if not torch.equal(a, b)]
+    log(f"run_barf north_star_occ_S32 bf16 {IMAGE_SIZE}^2 batch {N_RAYS}: {straight.step} "
+        f"steps, psnr {psnrs[0]:.3f} -> {psnrs[-1]:.3f} over {len(psnrs)} log rows, last "
+        f"train_rays_per_sec {rates[-1]:.0f}, launches {launches}; {split} steps + --resume to "
+        f"{resumed.step} ({resumed_launches['flagship_train']} K4 launches) against {steps} in "
+        f"one go: tensors that differ {diff}; the grid in the checkpoint: "
+        f"{torch.equal(blob['params']['occ'], first.params.occ.cpu())}")
+    require(straight.step == steps and resumed.step == steps, "occ runs")
+    require(psnrs[-1] > psnrs[0] + 1.0, f"occ run: PSNR did not rise by 1 dB: {psnrs}")
+    require(launches["flagship_train"] == steps, "occ run: K4 not on every step")
+    require(resumed_launches["flagship_train"] == steps - split, "occ resume: K4 launches")
+    require(not diff, f"occ resume not bitwise equal to the uninterrupted run: {diff}")
+    require(torch.equal(blob["params"]["occ"], first.params.occ.cpu())
+            and not bool((blob["params"]["occ"] == 1.0).all()), "occ grid not in the checkpoint")
+
+    ckpt = os.path.join(straight_dir, "ckpt")
+    serve = ["--ckpt_dir", ckpt, "--split", "test", "--n_images", "2", "--chunk", str(N_RAYS),
+             "--device", str(dev), "--image_size", str(IMAGE_SIZE), "--seed", "7"] + flags
+    for block in (1, 4):
+        summary, launches = counted_run(render_views.main, serve + [
+            "--serve_block", str(block), "--out_dir", os.path.join(workdir, f"occ_serve{block}")])
+        add_launches(total, launches)
+        log(f"render_views --serve_block {block} on the occupancy checkpoint (step "
+            f"{summary['ckpt_step']}): mean_psnr {summary['mean_psnr']:.3f}, launches {launches}")
+        require(summary["ckpt_step"] == steps and math.isfinite(summary["mean_psnr"]),
+                f"render_views --serve_block {block}")
+        require(launches["flagship_render"] > 0, f"serve_block {block}: K2 never launched")
+
+    # a crop of a test view served with block 4: the kernel path against the
+    # plain path on the CPU
+    cfg = slice_config("north_star_occ_S32 bf16")
+    dm = run_barf.build_config(run_barf.parse_args(
+        ["--image_size", str(IMAGE_SIZE), "--seed", "7"] + flags))[1]
+    dm.setup("test")
+    ds = dm.dataset_test
+    params = CheckpointManager(ckpt).restore(barf_sys.init(torch.Generator(), cfg))
+    raw = torch.as_tensor(dm.dataset_train.camera_origins)
+    noisy = torch.as_tensor(dm.dataset_train.camera_origins_noisy)
+    lo = IMAGE_SIZE * IMAGE_SIZE // 2
+    args = (ds.ray_origins[0][lo:lo + 512], ds.ray_directions[0][lo:lo + 512])
+    with torch.no_grad():
+        plain = render_views.render_image(params, cfg, *args, barf_sys.val_gauge(params, raw,
+                                                                                 noisy),
+                                          float(ds.pixel_width), 512, "cpu", A_POS, A_DIR, 4)
+        params.to(dev)
+        kern = render_views.render_image(params, cfg, *args, barf_sys.val_gauge(
+            params, raw.to(dev), noisy.to(dev)), float(ds.pixel_width), 512, dev, A_POS, A_DIR, 4)
+    err = float(np.abs(kern - plain).max())
+    log(f"serve_block 4, 512-ray crop: kernel path against the plain CPU path max abs err "
+        f"{err:.3e}, tol {TOL_BF16}")
+    require(err <= TOL_BF16, f"serve_block 4 crop err {err}")
+    return total
+
+
+def phase_block_coarse(dev, workdir):
+    """Block-coarse BARF at full width: the north_star_S32_blk4 and
+    north_star_occ_S32_blk4 fused steps (bf16, fp32) against the same steps
+    with K4's plain version, and (proposal) with every kernel's plain
+    version on the kernel step's fine bins, the bins' shift between K1 and
+    plain compositing and the all-plain step on its own bins logged beside
+    (gated in bf16); K1 / K3 on the coarse stage's inputs;
+    `render_block_coarse` with block 1 bitwise equal to the deterministic
+    `forward` (kernels on), and with block 4 against its plain-kernel
+    version; `run_barf --train_coarse_block 4` trains and resumes."""
+    import copy
+    import functools
+
+    from nerf_experiments_tpu_torch.experiments import run_barf
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    # K4 against its plain version, then (proposal configs) every kernel
+    # against its plain version on the kernel step's own fine bins: K1's last
+    # bits move some resampled bins, and the 10-level encoding magnifies a
+    # moved bin in the first layer's gradient, so the all-plain step that
+    # resamples its own bins is logged beside them as the witness
+    for name in ("north_star_S32_blk4 bf16", "north_star_occ_S32_blk4 bf16",
+                 "north_star_S32_blk4 fp32", "north_star_occ_S32_blk4 fp32"):
+        cfg = slice_config(name)
+        params = perturbed_camera(barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev),
+                                  dev, 9)
+        batch = train_batch(STEP_RAYS, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(10), dev)
+        step = barf_sys.make_train_step(cfg, fused=True)
+        bf16 = cfg.radiance.compute_dtype is not None
+        pair = functools.partial(step_pair, init_state=functools.partial(barf_sys.init_state, cfg),
+                                 params=params, batch=batch, scalars=(7.5, 2.5, 0.0), bf16=bf16,
+                                 dev=dev, seed=11)
+        pair(f"train step {name}, K4 against its plain version",
+             steps=(under_plain_kernels(step, compositing=False), step))
+        if not cfg.use_proposal:
+            continue  # the occupancy grid has no kernel: K4 is every kernel of this step
+        check_coarse_compositing(cfg, params, train_batch(
+            N_RAYS, cfg.n_training_images, torch.Generator(device=dev).manual_seed(12), dev),
+            dev, name)
+        bins = {}
+        for tag, fn in (("kernel", step), ("plain", under_plain_kernels(step))):
+            with fine_bins(record=bins.setdefault(tag, [])):
+                fn(barf_sys.init_state(cfg, copy.deepcopy(params)), batch,
+                   torch.Generator(device=dev).manual_seed(11), 7.5, 2.5, 0.0)
+        (ks, ke), (ps, pe) = bins["kernel"][0], bins["plain"][0]
+        shift = torch.maximum((ks - ps).abs(), (ke - pe).abs())
+        width = (cfg.far - cfg.near) / ks.shape[1]
+        log(f"{name} fine bins, K1 against plain compositing ({ks.shape[0]} x {ks.shape[1]}): "
+            f"{float((shift > 0).float().mean()):.4f} of the bin edges moved, the largest by "
+            f"{float(shift.max()):.3e} ({float(shift.max()) / width:.3e} of a uniform bin)")
+        pair(f"train step {name}, every kernel against its plain version, each resampling "
+             f"its own fine bins", steps=(under_plain_kernels(step), step), gate=bf16)
+        again = []
+        pair(f"train step {name}, every kernel against its plain version on the kernel "
+             f"step's fine bins", steps=(with_fine_bins(under_plain_kernels(step),
+                                                        pinned=bins["kernel"][0]),
+                                         with_fine_bins(step, record=again)))
+        require(torch.equal(again[0][0], ks) and torch.equal(again[0][1], ke),
+                f"{name}: the kernel step's fine bins are not repeatable")
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    origs, dirs = random_rays(N_RAYS, gen, dev)
+    pw = torch.full((N_RAYS, 1), 1e-3, device=dev)
+    for name in ("north_star_occ_S32 bf16", "north_star_S32 bf16"):
+        cfg = slice_config(name)
+        params = barf_sys.init(torch.Generator().manual_seed(44), cfg).to(dev)
+        if cfg.use_occ:
+            occupied(params, cfg)
+        with torch.no_grad():
+            one = barf_sys.render_block_coarse(params, cfg, origs, dirs, A_POS, A_DIR, block=1)
+            ref, _ = barf_sys.forward(params, cfg, None, origs, dirs, pw, A_POS, A_DIR,
+                                      stratified=False, fused=True)
+            four = barf_sys.render_block_coarse(params, cfg, origs, dirs, A_POS, A_DIR, block=4)
+            with plain_kernels():
+                four_plain = barf_sys.render_block_coarse(params, cfg, origs, dirs, A_POS,
+                                                          A_DIR, block=4)
+        torch.cuda.synchronize()
+        err = max_err(four, four_plain)
+        log(f"render_block_coarse {name} ({N_RAYS} rays): block 1 bitwise equal to forward: "
+            f"{torch.equal(one, ref)}; block 4 kernels against plain versions max abs err "
+            f"{err:.3e} (tol {TOL_BF16}); block 4 against block 1 max abs diff "
+            f"{max_err(four, one):.3e}")
+        require(torch.equal(one, ref), f"render_block_coarse {name}: block 1 is not forward")
+        require(err <= TOL_BF16, f"render_block_coarse {name}: block 4 err {err}")
+
+    out = os.path.join(workdir, "blk4")
+    base = ["--image_size", str(IMAGE_SIZE), "--batch_size", str(N_RAYS), "--seed", "7",
+            "--log_every_n_steps", "10", "--device", str(dev), "--out_dir", out,
+            "--checkpoint_every_n_epochs", "100"] + SLICE_CONFIGS["north_star_S32_blk4 bf16"]
+    state, launches = counted_run(run_barf.main, base + ["--max_steps", "20"])
+    state, resumed = counted_run(run_barf.main, base + ["--max_steps", "30", "--resume"])
+    losses = [json.loads(line).get("loss") for line in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [v for v in losses if v is not None]
+    log(f"run_barf north_star_S32_blk4 bf16 {IMAGE_SIZE}^2 batch {N_RAYS}: 20 steps, then "
+        f"--resume to {state.step}; loss {losses[0]:.5f} -> {losses[-1]:.5f}, launches "
+        f"{launches} and {resumed}")
+    require(state.step == 30 and all(math.isfinite(v) for v in losses), "blk4 run")
+    for k in ("flagship_train", "render_bwd"):  # K1 also runs validation and images
+        require(launches[k] == 20 and resumed[k] == 10, f"blk4 run: {k} not once a step")
+    require(launches["render_fwd"] >= 20 and resumed["render_fwd"] >= 10,
+            "blk4 run: K1 not on every step")
+    return add_launches(launches, resumed)
+
+
+def phase_garf_block_coarse(dev, workdir):
+    """Block-coarse GARF (garf_fused_blk4, bench.py:197-208, :443-445): the
+    fused step with train_coarse_block 4 against the same step with K5's and
+    the compositing kernels' plain versions (gauss fp32, gabor bf16; 1024
+    rays, 64 + 192 samples); `garf_main --train_coarse_block 4` trains."""
+    import dataclasses
+    import functools
+
+    from nerf_experiments_tpu_torch.experiments import garf_main
+    from nerf_experiments_tpu_torch.systems import garf_system
+
+    for activation, bf16 in (("gauss", False), ("gabor", True)):
+        cfg = dataclasses.replace(garf_system_cfg(activation, bf16), train_coarse_block=4)
+        params = perturbed_camera(
+            garf_system.init(torch.Generator().manual_seed(30), cfg).to(dev), dev, 31)
+        batch = garf_batch(STEP_RAYS, torch.Generator(device=dev).manual_seed(32), dev)
+        step = garf_system.make_train_step_fused(cfg)
+        step_pair(f"GARF blk4 train step {activation} {'bf16' if bf16 else 'fp32'}, kernels "
+                  f"against their plain versions", functools.partial(garf_system.init_state, cfg),
+                  params, batch, (under_plain_kernels(step), step), (0.37,), bf16, dev, 33)
+
+    out = os.path.join(workdir, "garf_blk4")
+    state, launches = counted_run(garf_main.main, [
+        "--image_size", "32", "--batch_size", str(STEP_RAYS), "--log_every_n_steps", "5",
+        "--fused_kernel", "--train_coarse_block", "4", "--device", str(dev), "--max_steps", "20",
+        "--out_dir", out])
+    losses = [json.loads(line).get("loss") for line in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [v for v in losses if v is not None]
+    log(f"garf_main --train_coarse_block 4 gauss fp32 32^2 batch 1024: {state.step} steps, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, launches {launches}")
+    require(state.step == 20 and all(math.isfinite(v) for v in losses), "garf blk4 run")
+    require(launches["garf_train"] == 20, "garf blk4: K5 not on every step")
+    return launches
+
+
+def time_steps(step_fn, state, batch, dev, n: int, first_seed: int) -> float:
+    """ms of `n` consecutive steps (CUDA events), each with its own
+    generator, the state advancing."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(n):
+        state, _ = step_fn(state, batch, torch.Generator(device=dev).manual_seed(first_seed + i))
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def phase_slice_timing(dev):
+    """Train rays/s of each slice config against its counterpart, in turns
+    (A, B, B, A), over a 16-step window that holds one occupancy refresh
+    (BARF at 8192 rays) or 4 steps (GARF at 4096); the refresh alone and its
+    share of the window; a profile of the occupancy steps; serving rays/s at
+    8192-ray chunks with serve_block 1 and 4."""
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.systems import garf_system
+
+    times = {}
+
+    def barf_run(name):
+        cfg = slice_config(name)
+        params = barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev)
+        batch = train_batch(N_RAYS, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(13), dev)
+        fn = barf_sys.make_train_step(cfg, fused=True)
+        return cfg, params, batch, lambda st, b, g: fn(st, b, g, 7.5, 2.5, 0.0)
+
+    window = 16
+    for dtype in ("bf16", "fp32"):
+        for a, b in (("north_star_S32", "north_star_occ_S32"),
+                     ("north_star_S32", "north_star_S32_blk4"),
+                     ("north_star_occ_S32", "north_star_occ_S32_blk4")):
+            res = {}
+            for name in (a, b, b, a):
+                cfg, params, batch, fn = barf_run(f"{name} {dtype}")
+                state = barf_sys.init_state(cfg, params)
+                time_steps(fn, state, batch, dev, 1, 100)  # step 0 (a refresh), warm-up
+                ms = time_steps(fn, state, batch, dev, window, 101)  # steps 1-16
+                res.setdefault(name, []).append(N_RAYS * window / ms * 1e3)
+                del state, params
+                torch.cuda.empty_cache()
+            for name, rates in res.items():
+                times[f"{name} {dtype}"] = max(rates)
+            log(f"train rays/s at {N_RAYS} rays, {window} steps (one refresh where there is "
+                f"a grid), {dtype}: {a} {res[a]} against {b} {res[b]}")
+        cfg, params, _, _ = barf_run(f"north_star_occ_S32 {dtype}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        refresh = cuda_time_ms(lambda: barf_sys._maybe_refresh_occ(cfg, params, 0, gen, A_POS,
+                                                                   A_DIR), iters=5)
+        step_ms = N_RAYS * window / times[f"north_star_occ_S32 {dtype}"] * 1e3
+        times[f"refresh {dtype}"] = refresh
+        log(f"occupancy refresh {dtype} ({cfg.occ.n_cells} cells through the radiance net): "
+            f"{refresh:.3f} ms, {refresh / step_ms:.3f} of a {window}-step window "
+            f"({step_ms:.2f} ms)")
+
+    for name in ("north_star_occ_S32 bf16", "north_star_occ_S32_blk4 bf16",
+                 "north_star_occ_S32 fp32"):
+        cfg, params, batch, fn = barf_run(name)
+        state = barf_sys.init_state(cfg, params)
+        time_steps(fn, state, batch, dev, 1, 100)
+        wall, device, _ = profile_step(
+            lambda: fn(state, batch, torch.Generator(device=dev).manual_seed(200)),
+            f"fused train step {name} (no refresh)")
+        times[f"profile {name}"] = (wall, device)
+
+    for activation, bf16 in (("gauss", False), ("gabor", True)):
+        res = {}
+        for block in (1, 4, 4, 1):
+            cfg = dataclasses.replace(garf_system_cfg(activation, bf16), train_coarse_block=block)
+            params = garf_system.init(torch.Generator().manual_seed(30), cfg).to(dev)
+            batch = garf_batch(GARF_RAYS, torch.Generator(device=dev).manual_seed(34), dev)
+            state = garf_system.init_state(cfg, params)
+            fn = garf_system.make_train_step_fused(cfg)
+
+            def step(st, b, g, fn=fn):
+                return fn(st, b, g, 1.0)
+
+            time_steps(step, state, batch, dev, 1, 300)
+            ms = time_steps(step, state, batch, dev, 4, 301)
+            res.setdefault(block, []).append(GARF_RAYS * 4 / ms * 1e3)
+            del state, params
+            torch.cuda.empty_cache()
+        tag = f"{activation} {'bf16' if bf16 else 'fp32'}"
+        times[f"garf_fused {tag}"], times[f"garf_fused_blk4 {tag}"] = max(res[1]), max(res[4])
+        log(f"GARF train rays/s at {GARF_RAYS} rays, {tag}: garf_fused {res[1]} against "
+            f"garf_fused_blk4 {res[4]}")
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    origs, dirs = random_rays(N_RAYS, gen, dev)
+    for name in ("north_star_occ_S32 bf16", "north_star_S32 bf16", "north_star_occ_S32 fp32"):
+        cfg = slice_config(name)
+        params = barf_sys.init(torch.Generator().manual_seed(44), cfg).to(dev)
+        if cfg.use_occ:
+            occupied(params, cfg)
+        rates = {}
+        with torch.no_grad():
+            for block in (1, 4):
+                ms = cuda_time_ms(lambda: barf_sys.render_block_coarse(
+                    params, cfg, origs, dirs, A_POS, A_DIR, block=block))
+                rates[block] = N_RAYS / ms * 1e3
+                times[f"serve {name} block {block}"] = rates[block]
+        log(f"serving {name} at {N_RAYS}-ray chunks: serve_block 1 {rates[1]:.0f} rays/s, "
+            f"serve_block 4 {rates[4]:.0f} rays/s")
+    return times
+
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -2375,16 +2998,25 @@ def hash_bounds(B: int) -> dict:
     2^16 fp32): bytes of x, g / the output and the table (gradient) once;
     operations: per (point, level) 6 d for the cell and per corner the weight's
     d - 1 products, and 2 F (K7: F multiply-adds; K8 without d_x: F products and
-    F adds into the table); with d_x, K8's 2^d (4 F + d (d + 2)), and x read and
-    d_x written."""
+    F adds into the table); with d_x, K8's 2^d (4 F + d (d + 2)), and x read
+    and d_x written. These count what the function needs. `hash_encode_bwd_acc`
+    adds what K8's fixed-point design costs on top (scratch of the design, not
+    of the function): its int64 accumulator's four words an element zeroed and
+    read back once, and 3 F operations a corner for one later word (the
+    remainder, its scaling and its add, which only terms below ~2^-17 max|g|
+    take, so an upper count)."""
     L, T, F, D = 16, 2**16, 2, 3
     f32 = 4
     per_level = 6 * D + 2**D * (D - 1 + 2 * F)
+    later_word = B * L * 2**D * 3 * F
+    bwd_bytes = f32 * (B * D + B * L * F + 2 * L * T * F + B * D)
+    bwd_ops = B * L * 2**D * (4 * F + D * (D + 2))
     return {"hash_encode_fwd": bound(f32 * (B * D + L * T * F + B * L * F), B * L * per_level),
             "hash_encode_bwd_no_dx": bound(f32 * (B * D + B * L * F + L * T * F),
                                            B * L * per_level),
-            "hash_encode_bwd": bound(f32 * (B * D + B * L * F + 2 * L * T * F + B * D),
-                                     B * L * 2**D * (4 * F + D * (D + 2)))}
+            "hash_encode_bwd": bound(bwd_bytes, bwd_ops),
+            "hash_encode_bwd_acc": bound(bwd_bytes + 2 * 4 * 8 * L * T * F,
+                                         bwd_ops + later_word)}
 
 
 def kernel_bounds():
@@ -2532,6 +3164,10 @@ def main() -> int:
         run(23, phase_fused_plug_step, dev)
         mip_launches = run(24, phase_mip_training, dev, workdir)
         mip_times = run(25, phase_mip_timing, dev)
+        slice_launches = run(26, phase_occ, dev, workdir)
+        add_launches(slice_launches, run(27, phase_block_coarse, dev, workdir))
+        add_launches(slice_launches, run(28, phase_garf_block_coarse, dev, workdir))
+        run(29, phase_slice_timing, dev)
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
     # (inputs rotated past the L2), K7 and K8 (table in L2), CUDA events per
@@ -2545,37 +3181,41 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
          "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
          + garf_launches["render_fwd"] + ingp_launches["render_fwd"]
-         + mip_launches["render_fwd"],
+         + mip_launches["render_fwd"] + slice_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/flagship_render.cu",
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:415",
          "launches": launches["dense"]["flagship_render"]
-         + launches["northstar"]["flagship_render"] + train_launches["flagship_render"],
+         + launches["northstar"]["flagship_render"] + train_launches["flagship_render"]
+         + slice_launches["flagship_render"],
          "max_abs_err": k2_err,
          "ms": times["K2_S128_fp32"][0], "plain_ms": times["K2_S128_fp32"][1]},
         {"name": "render_bwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
          "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"]
-         + mip_launches["render_bwd"],
+         + mip_launches["render_bwd"] + slice_launches["render_bwd"],
          "max_abs_err": k3_err,
          "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
         {"name": "flagship_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/flagship_train.cu",
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:152",
-         "launches": train_launches["flagship_train"], "max_abs_err": k4_err,
+         "launches": train_launches["flagship_train"] + slice_launches["flagship_train"],
+         "max_abs_err": k4_err,
          "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1]},
         {"name": "garf_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/garf_train.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:82",
-         "launches": garf_launches["garf_train"], "max_abs_err": k5_err,
+         "launches": garf_launches["garf_train"] + slice_launches["garf_train"],
+         "max_abs_err": k5_err,
          "ms": garf_times["K5_gauss_fp32"][0], "plain_ms": garf_times["K5_gauss_fp32"][1]},
         {"name": "garf_render", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/garf_render.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:376",
-         "launches": garf_launches["garf_render"], "max_abs_err": k6_err,
+         "launches": garf_launches["garf_render"] + slice_launches["garf_render"],
+         "max_abs_err": k6_err,
          "ms": garf_times["K6_gauss_fp32"][0], "plain_ms": garf_times["K6_gauss_fp32"][1]},
         {"name": "hash_encode_fwd", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/hashgrid.cu",
@@ -2628,6 +3268,7 @@ def main() -> int:
         if k["name"] == "hash_encode_bwd":
             k["ms_no_dx"] = ingp_times["K8_no_dx"][0]
             k["bound_ms_no_dx"] = bounds["hash_encode_bwd_no_dx"][0]
+            k["bound_ms_with_accumulator"] = bounds["hash_encode_bwd_acc"][0]
     for k in kernels["kernels"]:
         for suffix, (ms, plain) in bf16_times.get(k["name"], {}).items():
             k[f"ms_bf16{suffix}"], k[f"plain_ms_bf16{suffix}"] = ms, plain

@@ -33,11 +33,12 @@
 // themselves: staging levels 0 and 1 in shared memory took that space from the
 // L1 and was slower, so the kernel has no stage.
 //
-// Backward: d_table is bitwise repeatable. Each contribution w_c g is
-// quantised to int64 at a per-launch scale 2^s and added with 64-bit integer
-// atomics; integer addition is associative, so any order of the atomics gives
-// the same bits (the TPU kernel gets one answer from its sequential grid), and
-// `ops/hashgrid.py:dtable_fixed_point_reference` gives them too.
+// Backward: d_table is bitwise repeatable and exact. Each contribution w_c g
+// is cut into up to four int64 words at per-launch scales and added with
+// 64-bit integer atomics; integer addition is associative, so any order of
+// the atomics gives the same bits (the TPU kernel gets one answer from its
+// sequential grid), and `ops/hashgrid.py:dtable_fixed_point_reference` gives
+// them too.
 //   1. `abs_max_kernel`: max |g| (as the bits of a non-negative float, one
 //      atomicMax a block). s = 62 - d - ceil(log2 n) - e, where max|g| = m 2^e,
 //      m in [0.5, 1): a row takes at most 2^d n terms of |q| <= 2^(e+s) + 1/2,
@@ -50,13 +51,24 @@
 //      sector, and the L2 takes one request where one lane a corner would send
 //      2F. g is read coalesced. Summing the small bijective levels in shared
 //      memory first saved 0-2 % of K8 at 262,144 points and went.
-//   3. `fixed_to_float_kernel`: every word of the accumulator to fp32
-//      (acc 2^-s), untouched rows included, so d_table needs no zeroing.
-// The fixed point's quantum 2^-s is absolute (2^-40 to 2^-39 max|g| at
-// 524,288 3-D points): a term below half of it adds 0, so a row whose terms
-// all lie below it comes out as 0, and a row sum below ~2^-17 max|g| keeps
-// fewer significant bits than an fp32 sum would (PERF.md gives the share of
-// such rows in a trained INGP step).
+//      A term v = c 2^s (exact in fp32) goes in as word 0 = rint(v), then
+//      word i = rint(v_i) of the remainder v_i = (v_(i-1) - word (i-1)) 2^K:
+//      each remainder is the fraction of an fp32 value, exact, at most 1/2,
+//      and K = 63 - d - ceil(log2 n) keeps 2^d n words of |q| <= 2^(K-1)
+//      inside int64 (`ops/hashgrid.py:fixed_point_lo_shift`). A word that is
+//      0 is not added, so a term takes one atomic per nonzero word: the
+//      first alone for terms above ~2^-17 max|g|, where the fraction is 0.
+//   3. `fixed_to_float_kernel`: every element to fp32 as the sum over i of
+//      word i 2^-(s+iK) in float64, untouched rows included, so d_table
+//      needs no zeroing.
+// The words a launch keeps (`fixed_point_words`) reach 2^-149, fp32's
+// smallest step, whenever s >= 0 and s + 3K >= 149 (at 524,288 3-D points:
+// any max|g| below 2^14): every fp32 term is then represented exactly and
+// d_table is its exact sum, rounded once (in float64, then to fp32). A
+// single word's quantum 2^-s zeroed 0.13-0.44 % of a trained INGP step's
+// nonzero elements, two words 4 elements of 1.4 million, at 9e-27 max|g|
+// (PERF.md). The accumulator holds four words an element (64 MiB at L16 F2
+// T 2^16).
 // d_x (`hash_dx_kernel`, only when asked): one thread a (point, level) forms
 // the level's term with the forward's paired loads, then one thread a point
 // adds the L terms in level order, with d|u|/du = +1 at u = 0 (the JAX
@@ -353,27 +365,47 @@ abs_max_kernel(const float* __restrict__ g, long long count, unsigned* __restric
   }
 }
 
-// The fixed-point scale of a launch (ops/hashgrid.py:fixed_point_shift).
+// The fixed-point scales of a launch (ops/hashgrid.py:fixed_point_shift,
+// fixed_point_lo_shift and fixed_point_words).
+constexpr int kMaxWords = 4;
+
 struct Scale {
-  float up;     // 2^s: a contribution c becomes rint(c 2^s)
-  double down;  // 2^-s
+  float up;                 // 2^s: a contribution c becomes v = c 2^s
+  float up_lo;              // 2^K: the next word's scale on the remainder
+  double down[kMaxWords];   // 2^-(s+iK), word i's weight
+  int words;                // the words this launch adds
   bool finite;
 };
 
 __device__ __forceinline__ Scale load_scale(const unsigned* gmax, int dim, int ceil_log2_n) {
   const unsigned bits = *gmax;
-  Scale sc{1.f, 1.0, bits < 0x7f800000u};
-  if (bits == 0 || !sc.finite) return sc;
-  int e;
-  frexpf(__uint_as_float(bits), &e);
-  const int s = min(max(62 - dim - ceil_log2_n - e, kShiftMin), kShiftMax);
+  const int k = 63 - dim - ceil_log2_n;
+  Scale sc;
+  sc.finite = bits < 0x7f800000u;
+  sc.up_lo = ldexpf(1.f, k);
+  int s = 0;
+  if (bits != 0 && sc.finite) {
+    int e;
+    frexpf(__uint_as_float(bits), &e);
+    s = min(max(62 - dim - ceil_log2_n - e, kShiftMin), kShiftMax);
+  }
   sc.up = ldexpf(1.f, s);
-  sc.down = ldexp(1.0, -s);
+  sc.words = min(kMaxWords, 1 + (149 - s + k - 1) / k);
+  for (int i = 0; i < kMaxWords; ++i) sc.down[i] = ldexp(1.0, -s - i * k);
   return sc;
 }
 
-__device__ __forceinline__ unsigned long long quantise(float c, float up) {
-  return static_cast<unsigned long long>(__float2ll_rn(__fmul_rn(c, up)));
+// add(i, q) for each nonzero word q of c: q_0 = rint(c 2^s), then the
+// remainder scaled by 2^K and rounded, each step exact in fp32 (half to
+// even, as torch.round); the remainder is 0 after the last nonzero word.
+template <typename Add>
+__device__ __forceinline__ void quantise(float c, const Scale& sc, Add add) {
+  float v = __fmul_rn(c, sc.up);
+  for (int i = 0; i < sc.words && v != 0.f; ++i) {
+    const float q = rintf(v);
+    if (q != 0.f) add(i, static_cast<unsigned long long>(__float2ll_rn(q)));
+    v = __fmul_rn(__fsub_rn(v, q), sc.up_lo);
+  }
 }
 
 // The backward's lanes: 2F a (point, level), one a (x bit, feature). A group
@@ -388,12 +420,12 @@ struct GroupLane {
   __device__ explicit GroupLane(int t) : xbit((t % kSize) / F), f(t % F) {}
 };
 
-// The 2^(d-1) corners of lane.xbit: add(word, q) for each, q the quantised
-// w_c g_f, word row_c F + f of the level.
+// The 2^(d-1) corners of lane.xbit: add(element, i, q) for each nonzero word
+// q (the i-th) of w_c g_f, element row_c F + f of the level.
 template <int D, int F, typename Add>
 __device__ __forceinline__ void add_corners(const Cell<D>& cell, GroupLane<F> lane, float gf,
-                                            float up, int res, unsigned t_eff, bool bijective,
-                                            bool additive, const unsigned* primes,
+                                            const Scale& sc, int res, unsigned t_eff,
+                                            bool bijective, bool additive, const unsigned* primes,
                                             unsigned table_size, Add add) {
   constexpr int kHalf = 1 << (D - 1);
 #pragma unroll
@@ -401,12 +433,15 @@ __device__ __forceinline__ void add_corners(const Cell<D>& cell, GroupLane<F> la
     const int corner = c + lane.xbit * kHalf;
     const unsigned row =
         corner_row<D>(cell, corner, res, t_eff, bijective, additive, primes, table_size);
-    add(row * F + lane.f, quantise(__fmul_rn(corner_weight<D>(cell, corner), gf), up));
+    const unsigned element = row * F + lane.f;
+    quantise(__fmul_rn(corner_weight<D>(cell, corner), gf), sc,
+             [&](int i, unsigned long long q) { add(element, i, q); });
   }
 }
 
 // A group of 2F lanes a (point, level), level fastest: g read coalesced,
-// every contribution one global 64-bit atomic.
+// every nonzero word of a contribution one global 64-bit atomic, word i at
+// i L T F words into the accumulator.
 template <int D, int F>
 __global__ void __launch_bounds__(kThreads)
 hash_bwd_global_kernel(const float* __restrict__ x, const float* __restrict__ g,
@@ -429,13 +464,18 @@ hash_bwd_global_kernel(const float* __restrict__ x, const float* __restrict__ g,
   load_point<D>(x, q, xp);
   const int res = s.res[l];
   const float gf = __ldg(g + (static_cast<size_t>(q) * p.n_levels + l) * F + lane.f);
+  const size_t words = static_cast<size_t>(L) * p.table_size * F;
   unsigned long long* dst = acc + static_cast<size_t>(l) * p.table_size * F;
-  add_corners<D, F>(make_cell<D>(xp, res), lane, gf, sc.up, res, s.t_eff[l], s.bijective[l],
+  add_corners<D, F>(make_cell<D>(xp, res), lane, gf, sc, res, s.t_eff[l], s.bijective[l],
                     p.additive, primes, static_cast<unsigned>(p.table_size),
-                    [&](unsigned w, unsigned long long v) { atomicAdd(dst + w, v); });
+                    [&](unsigned element, int i, unsigned long long word) {
+                      atomicAdd(dst + i * words + element, word);
+                    });
 }
 
-// d_table = acc 2^-s for every word (NaN everywhere for a non-finite g).
+// d_table = sum over the launch's words of word i 2^-(s+iK), in float64 in
+// the order of i (each product exact), rounded to fp32; NaN everywhere for a
+// non-finite g.
 __global__ void __launch_bounds__(kThreads)
 fixed_to_float_kernel(const long long* __restrict__ acc, float* __restrict__ out,
                       long long count, const unsigned* __restrict__ gmax, int dim,
@@ -443,9 +483,12 @@ fixed_to_float_kernel(const long long* __restrict__ acc, float* __restrict__ out
   const Scale sc = load_scale(gmax, dim, ceil_log2_n);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-       i += stride)
-    out[i] = sc.finite ? __double2float_rn(__ll2double_rn(acc[i]) * sc.down)
-                       : __int_as_float(0x7fc00000);
+       i += stride) {
+    double sum = 0.0;
+    for (int w = 0; w < sc.words; ++w)
+      sum = __dadd_rn(sum, __dmul_rn(__ll2double_rn(acc[w * count + i]), sc.down[w]));
+    out[i] = sc.finite ? __double2float_rn(sum) : __int_as_float(0x7fc00000);
+  }
 }
 
 // d_x (n, dim): one thread a (point, level) forms the level's term res * sum_c
@@ -605,7 +648,8 @@ extern "C" int netpu_hash_encode_fwd(const float* table, const float* x, float* 
 
 // The backward of netpu_hash_encode_fwd for the cotangent g (n, L*F): writes
 // every element of d_table (L, T, F), and d_x (n, dim) unless it is null.
-// acc (L*T*F int64) and gmax (one uint32) are the caller's scratch.
+// acc (4 L*T*F int64: word 0 of every element, then word 1, ...) and gmax
+// (one uint32) are the caller's scratch.
 extern "C" int netpu_hash_encode_bwd(const float* table, const float* x, const float* g,
                                      float* d_table, float* d_x, long long* acc,
                                      unsigned* gmax, const unsigned* level_info,
@@ -617,7 +661,7 @@ extern "C" int netpu_hash_encode_bwd(const float* table, const float* x, const f
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long words = static_cast<long long>(n_levels) * table_size * n_features;
   if (n == 0) return static_cast<int>(cudaMemsetAsync(d_table, 0, words * 4, s));
-  cudaError_t e = cudaMemsetAsync(acc, 0, words * 8, s);
+  cudaError_t e = cudaMemsetAsync(acc, 0, kMaxWords * words * 8, s);
   if (e == cudaSuccess) e = cudaMemsetAsync(gmax, 0, 4, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long g_count = static_cast<long long>(n) * n_levels * n_features;

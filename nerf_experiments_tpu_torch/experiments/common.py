@@ -99,8 +99,11 @@ def build_barf_experiment(
 ) -> BarfExperiment:
     """Ray stores on `device`, initial parameters drawn from a generator
     seeded with `trainer_cfg.seed`, the train step, validation, pose error,
-    image/point loggers, checkpoints and the trainer."""
+    image/point loggers, checkpoints and the trainer. The trainer's
+    `batch_block` is the system's `train_coarse_block`, so the batches come
+    in the runs that the step shares its coarse stage across."""
     device = torch.device(device or "cuda")
+    trainer_cfg = dataclasses.replace(trainer_cfg, batch_block=max(1, cfg.train_coarse_block))
     dm.setup("fit")
     train_store = sampler.make_ray_store(dm.dataset_train, device)
     val_store = sampler.make_ray_store(dm.dataset_val, device) if dm.dataset_val else None

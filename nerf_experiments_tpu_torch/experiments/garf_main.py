@@ -105,7 +105,9 @@ def parse_args(argv=None):
                         "kernel (ops/garf_megakernel.py:garf_radiance_train_grads; "
                         "gradient-exact); see PERF.md for its time and workspace")
     p.add_argument("--train_coarse_block", type=int, default=1,
-                   help="share each proposal stage across this many rays (not ported yet)")
+                   help="share each proposal stage across this many raster-consecutive "
+                        "rays (--fused_kernel only; GarfSystemConfig.train_coarse_block "
+                        "+ TrainerConfig.batch_block)")
     common.add_common_args(p)
     p.set_defaults(seed=1337, max_epochs=None)
     return p.parse_args(argv)
@@ -170,6 +172,7 @@ def build_config(args, dm: blender.DataModule, steps_per_epoch: int):
         act_anneal_end_step=epochs_to_steps(args.act_anneal_end_epoch),
         camera_freeze_start_step=epochs_to_steps(freeze[0]),
         camera_freeze_end_step=epochs_to_steps(freeze[1]),
+        train_coarse_block=args.train_coarse_block,
     )
 
 
@@ -181,9 +184,8 @@ def build(args, device=None):
     if args.conv_blur:
         raise NotImplementedError("--conv_blur is not ported yet: it needs ops/image_blur.py "
                                   "and Trainer.swap_train_colors (ROADMAP A11)")
-    if args.train_coarse_block > 1:
-        raise NotImplementedError("GARF block-coarse training (--train_coarse_block) is not "
-                                  "ported yet (ROADMAP A9)")
+    if args.train_coarse_block > 1 and not args.fused_kernel:
+        raise ValueError("--train_coarse_block requires --fused_kernel")
     device = torch.device(device or args.device)
     scene = common.resolve_scene(args.scene_path, args.image_size)
     dm = blender.DataModule(
@@ -226,7 +228,8 @@ def build(args, device=None):
     trainer_cfg = TrainerConfig(
         max_epochs=max_epochs, max_steps=args.max_steps, batch_size=args.batch_size,
         seed=args.seed, checkpoint_every_n_epochs=args.checkpoint_every_n_epochs,
-        log_every_n_steps=args.log_every_n_steps)
+        log_every_n_steps=args.log_every_n_steps,
+        batch_block=cfg.train_coarse_block)  # the system's block sets the batches'
 
     @torch.no_grad()
     def density_profiles(params, pos, dirs):

@@ -8,7 +8,9 @@ kernels (`ops/train_megakernel.py:flagship_render`, and the compositing
 kernel for a proposal stage); a run_mip_nerf or run_bip_barf checkpoint
 (`--entry mip|bip`: integrated encodings) through plain torch and the
 compositing kernel; a run_3d_ingp checkpoint (`--entry ingp`) through the
-hash-grid kernel and the compositing kernel.
+hash-grid kernel and the compositing kernel. `--serve_block N` shares each
+coarse stage (proposal net or occupancy grid) across N raster-consecutive
+rays (`systems/barf.py:render_block_coarse`).
 
     python -m nerf_experiments_tpu_torch.experiments.render_views \\
         --ckpt_dir runs/latest/ckpt --scene_path synthetic --split test
@@ -64,8 +66,9 @@ def parse_args(argv=None):
                         "(a params-only restore does not need it)")
     p.add_argument("--split", choices=["train", "val", "test"], default="test")
     p.add_argument("--serve_block", type=int, default=1,
-                   help="block-coarse serving; only 1 (the standard path) is "
-                        "ported so far")
+                   help="block-coarse serving (systems/barf.py:render_block_coarse): "
+                        "each run of N raster-consecutive rays shares the fine bins of "
+                        "its first ray's coarse stage; 1 = the standard path")
     p.add_argument("--n_images", type=int, default=None, help="limit rendered views")
     p.add_argument("--chunk", type=int, default=2048)
     defaults = run_barf.parse_args([])
@@ -138,10 +141,6 @@ def _build_ingp(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.serve_block > 1:
-        raise NotImplementedError(
-            "--serve_block > 1 (render_block_coarse) is not ported yet: it comes "
-            "with the block-coarse PR of the port (ROADMAP A9)")
     entry_configs = {"mip": _build_mip, "bip": _build_bip, "ingp": _build_ingp}
     if args.entry in entry_configs:
         cfg, dm = entry_configs[args.entry](args)
@@ -160,21 +159,32 @@ def main(argv=None):
 
 
 def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
-                 pixel_width: float, chunk: int, device, alpha_pos, alpha_dir) -> np.ndarray:
-    """One view's rays (HW, 3) through the gauge and `forward` in chunks of
-    `chunk` rays -> clipped rgb (HW, 3)."""
+                 pixel_width: float, chunk: int, device, alpha_pos, alpha_dir,
+                 serve_block: int = 1) -> np.ndarray:
+    """One view's rays (HW, 3) through the gauge and `forward` (or, with
+    serve_block > 1, `render_block_coarse`) in chunks of `chunk` rays ->
+    clipped rgb (HW, 3). A chunk is padded with its last rays to a multiple
+    of serve_block, in raster order as block-coarse serving needs."""
     fused = barf_sys.use_fused_render(cfg, device)
     out = np.empty((origs.shape[0], 3), np.float32)
     for lo in range(0, origs.shape[0], chunk):
         hi = min(lo + chunk, origs.shape[0])
+        pad = (lo - hi) % serve_block
+        o_c, d_c = origs[lo:hi], dirs[lo:hi]
+        if pad:
+            o_c = np.concatenate([o_c, origs[hi - pad:hi]])
+            d_c = np.concatenate([d_c, dirs[hi - pad:hi]])
         o, d = calibration.validation_transform_rays(
-            torch.as_tensor(origs[lo:hi], device=device),
-            torch.as_tensor(dirs[lo:hi], device=device), gauge)
-        pw = torch.full((hi - lo, 1), pixel_width, device=device)
+            torch.as_tensor(o_c, device=device), torch.as_tensor(d_c, device=device), gauge)
         with torch.no_grad():
-            rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
-                                      stratified=False, fused=fused)
-        out[lo:hi] = torch.clamp(rgb, 0.0, 1.0).cpu().numpy()
+            if serve_block > 1:
+                rgb = barf_sys.render_block_coarse(params, cfg, o, d, alpha_pos, alpha_dir,
+                                                   block=serve_block, pixel_width=pixel_width)
+            else:
+                pw = torch.full((hi - lo, 1), pixel_width, device=device)
+                rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
+                                          stratified=False, fused=fused)
+        out[lo:hi] = torch.clamp(rgb[:hi - lo], 0.0, 1.0).cpu().numpy()
     return out
 
 
@@ -207,7 +217,7 @@ def _render(args, cfg, dm, params):
     for i in range(n_images):
         out = render_image(params, cfg, dataset.ray_origins[i], dataset.ray_directions[i],
                            gauge, float(dataset.pixel_width), args.chunk, device,
-                           a_pos, a_dir)
+                           a_pos, a_dir, args.serve_block)
         target = dataset.images[i, :, :, -1, :].reshape(hw, 3)
         m = float(np.mean((out - target) ** 2))
         name = dataset.image_index_to_name[i]

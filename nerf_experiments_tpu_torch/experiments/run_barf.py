@@ -14,7 +14,8 @@ trains, and with `--resume` continues from the latest checkpoint in
 
     python -m nerf_experiments_tpu_torch.experiments.run_barf --fused_kernel \
         [--bf16] [--samples_per_ray 32 --samples_per_ray_proposal 64 \
-        --proposal_hidden_dim 64 --proposal_n_hidden 1]
+        --proposal_hidden_dim 64 --proposal_n_hidden 1 | --occ_grid_resolution 64] \
+        [--train_coarse_block 4]
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from nerf_experiments_tpu_torch.data import blender
 from nerf_experiments_tpu_torch.encodings.fourier import Barf
 from nerf_experiments_tpu_torch.experiments import common
 from nerf_experiments_tpu_torch.models import nerf_mlp
+from nerf_experiments_tpu_torch.ops import occgrid
 from nerf_experiments_tpu_torch.systems import barf as barf_sys
 from nerf_experiments_tpu_torch.training.trainer import TrainerConfig
 
@@ -47,8 +49,8 @@ def parse_args(argv=None):
     # uses a smaller coarse net too) — the north-star throughput config.
     p.add_argument("--proposal_hidden_dim", type=int, default=0)
     p.add_argument("--proposal_n_hidden", type=int, default=1)
-    # occupancy-grid guided sampling (the nerfacc OccGridEstimator analog;
-    # not ported yet): replaces the proposal-net coarse stage
+    # occupancy-grid guided sampling (the nerfacc OccGridEstimator analog,
+    # ops/occgrid.py): replaces the proposal-net coarse stage
     p.add_argument("--occ_grid_resolution", type=int, default=0,
                    help="cells per axis; 0 = off")
     p.add_argument("--occ_grid_coarse", type=int, default=64,
@@ -91,7 +93,8 @@ def parse_args(argv=None):
                         "row for its workspace; see PERF.md")
     p.add_argument("--train_coarse_block", type=int, default=1,
                    help="block-coarse training: share the coarse stage "
-                        "per block of N raster-consecutive rays (not ported yet)")
+                        "per block of N raster-consecutive rays (--fused_kernel and a "
+                        "coarse stage: proposal or occupancy grid)")
     p.add_argument("--image_log_period_epochs", type=float, default=None,
                    help="fixed image-reconstruction log period in epochs "
                         "(default: the reference's 0.002->1/24 taper)")
@@ -104,10 +107,11 @@ def build_config(args):
     if args.mesh:
         raise NotImplementedError("--mesh (multi-device training) is not ported yet "
                                   "(ROADMAP A13)")
-    if args.occ_grid_resolution > 0:
-        raise NotImplementedError("the occupancy grid is not ported yet (ROADMAP A9)")
     if args.train_coarse_block > 1:
-        raise NotImplementedError("block-coarse training is not ported yet (ROADMAP A9)")
+        if not args.fused_kernel:
+            raise ValueError("--train_coarse_block requires --fused_kernel")
+        if args.samples_per_ray_proposal <= 0 and args.occ_grid_resolution <= 0:
+            raise ValueError("--train_coarse_block needs a coarse stage (proposal or occ grid)")
     scene = common.resolve_scene(args.scene_path, args.image_size)
     sigmas = common.blur_sigmas_from_start(args.start_blur_sigma, args.n_blur_sigmas)
 
@@ -154,9 +158,19 @@ def build_config(args):
     if args.samples_per_ray_proposal > 0 and args.proposal_hidden_dim > 0:
         proposal = mlp(args.proposal_n_hidden, args.proposal_hidden_dim, 1)
 
+    occ = None
+    if args.occ_grid_resolution > 0:
+        occ = occgrid.OccGridConfig(
+            resolution=args.occ_grid_resolution,
+            aabb_half=args.occ_grid_aabb_half,
+            n_coarse=args.occ_grid_coarse,
+            update_every=args.occ_grid_update_every,
+        )
+
     cfg = barf_sys.BarfConfig(
         radiance=mlp(args.n_hidden, args.hidden_dim, args.n_segments),
         proposal=proposal,
+        occ=occ,
         n_training_images=dm.n_training_images,
         near=2.0, far=8.0,
         samples_per_ray_radiance=args.samples_per_ray,
@@ -170,6 +184,7 @@ def build_config(args):
         camera_adam_eps=args.camera_adam_eps,
         max_gaussian_sigma=args.start_blur_sigma,
         gaussian_blur_sigmas=sigmas,
+        train_coarse_block=args.train_coarse_block,
     )
     return cfg, dm
 

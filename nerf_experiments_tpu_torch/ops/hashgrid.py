@@ -24,7 +24,9 @@ forward is the kernel `netpu_hash_encode_fwd` (K7) and its backward
 `hash_encode_fwd_cuda` / `hash_encode_bwd_cuda`), which replace the TPU
 kernels `ops/hashgrid_pallas.py:_fwd_kernel` (the row fetch) and
 `_dtable_kernel` (the table gradient). K8 sums d_table in int64 fixed point,
-so it is bitwise repeatable; `dtable_fixed_point_reference` emulates it. On
+up to four words a term (at run_3d_ingp's shapes every fp32 term exactly,
+so d_table is the exact sum, rounded once), so it is bitwise repeatable;
+`dtable_fixed_point_reference` emulates it. On
 a CPU tensor `encode` is the plain version, `encode_reference` (per-level
 gather, weighted sum) under torch autograd, whose backward scatter-adds
 into the table.
@@ -215,12 +217,32 @@ def fixed_point_shift(max_abs_g: float, n: int, dim: int) -> int:
     """K8's scale 2^s for a launch of n points whose cotangent has max |g| =
     m 2^e (m in [0.5, 1)): s = 62 - d - ceil(log2 n) - e. A row takes at most
     2^d n contributions w g with w <= 1, each quantised to |q| <= 2^(e+s) +
-    1/2, so no int64 sum reaches 2^63. Clamped to `SHIFT_RANGE`. The
-    quantum 2^-s is absolute: a term below 2^-(s+1) adds 0."""
+    1/2, so no int64 sum of the first word reaches 2^63. Clamped to
+    `SHIFT_RANGE`."""
     if not max_abs_g > 0.0:
         return 0
     e = math.frexp(max_abs_g)[1]
     return max(SHIFT_RANGE[0], min(SHIFT_RANGE[1], 62 - dim - (n - 1).bit_length() - e))
+
+
+def fixed_point_lo_shift(n: int, dim: int) -> int:
+    """K8's scale 2^K between its words: the remainder r = v - rint(v) of a
+    term's scaled value v (|r| <= 1/2, exact in fp32) goes into the next
+    int64 word as rint(r 2^K). K = 63 - d - ceil(log2 n): 2^d n such words of
+    |q| <= 2^(K-1) stay inside int64."""
+    return 63 - dim - (n - 1).bit_length()
+
+
+MAX_WORDS = 4  # `kMaxWords` of csrc/hashgrid.cu
+
+
+def fixed_point_words(s: int, k: int) -> int:
+    """The int64 words K8 keeps a term at scales 2^s, 2^(s+K), ...: enough to
+    reach 2^-149, fp32's smallest step (s + (W-1) K >= 149), at most
+    `MAX_WORDS`. When s >= 0 and that is reached, every fp32 term is
+    represented exactly; the last quantum 2^-(s+(W-1)K) bounds it otherwise
+    (a term below half of it adds 0)."""
+    return min(MAX_WORDS, 1 + (149 - s + k - 1) // k)
 
 
 def dtable_terms(cfg: HashGridConfig, x: torch.Tensor, g: torch.Tensor, hash: str = "xor"):
@@ -239,24 +261,36 @@ def dtable_terms(cfg: HashGridConfig, x: torch.Tensor, g: torch.Tensor, hash: st
 
 def dtable_fixed_point_reference(cfg: HashGridConfig, x: torch.Tensor,
                                  g: torch.Tensor, hash: str = "xor") -> torch.Tensor:
-    """Emulation of K8's table gradient: every term of `dtable_terms` times
-    2^s in fp32, rounded to int64 (half to even, as `__float2ll_rn`), summed
-    by `index_add_` in int64 and converted as acc 2^-s in float64 then fp32.
-    Integer sums do not depend on the order of the points, so this gives
-    K8's bits. All NaN when g holds a non-finite value. The rows' bf16
-    rounding does not reach d_table. For the tests; no path of the port
-    calls it."""
+    """Emulation of K8's table gradient: every term c of `dtable_terms` as v
+    = c 2^s in fp32 cut into `fixed_point_words` words, word i = rint(v_i)
+    with v_0 = v and v_(i+1) = (v_i - word i) 2^K (half to even, as
+    `rintf`; every step exact in fp32), each summed by `index_add_` in int64
+    and converted as the sum over i of word i 2^-(s+iK) in float64, in the
+    order of i, then fp32. Integer sums do not depend on the order of the
+    points, so this gives K8's bits. All NaN when g holds a non-finite
+    value. The rows' bf16 rounding does not reach d_table. For the tests; no
+    path of the port calls it."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
     n = x.shape[0]
     gmax = float(g.abs().max()) if g.numel() else 0.0
     if not math.isfinite(gmax):
         return torch.full((L, T, F), float("nan"), dtype=torch.float32, device=x.device)
     s = fixed_point_shift(gmax, n, cfg.dim)
+    k = fixed_point_lo_shift(n, cfg.dim)
+    words = fixed_point_words(s, k)
     up = torch.tensor(2.0 ** s, dtype=torch.float32, device=x.device)
-    acc = torch.zeros((L * T, F), dtype=torch.int64, device=x.device)
+    up_lo = torch.tensor(2.0 ** k, dtype=torch.float32, device=x.device)
+    acc = torch.zeros((words, L * T, F), dtype=torch.int64, device=x.device)
     for rows, c in dtable_terms(cfg, x, g, hash):
-        acc.index_add_(0, rows, torch.round((c * up).double()).long())
-    return (acc.double() * 2.0 ** -s).float().reshape(L, T, F)
+        v = c * up
+        for i in range(words):
+            q = torch.round(v)
+            acc[i].index_add_(0, rows, q.double().long())
+            v = (v - q) * up_lo
+    total = torch.zeros((L * T, F), dtype=torch.float64, device=x.device)
+    for i in range(words):
+        total = total + acc[i].double() * 2.0 ** -(s + i * k)
+    return total.float().reshape(L, T, F)
 
 
 def level_info(cfg: HashGridConfig) -> List[int]:
@@ -315,16 +349,16 @@ def hash_encode_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                          cfg: HashGridConfig, hash: str = "xor", gather_dtype=None,
                          need_dx: bool = True):
     """One launch of the backward kernels (K8): (d_table (L, T, F) fp32, d_x
-    (B, d) or None). d_table is summed in int64 fixed point and is bitwise
-    repeatable (`dtable_fixed_point_reference` gives its bits); d_x is summed
-    per point in a fixed order."""
+    (B, d) or None). d_table is summed in int64 fixed point, up to four words
+    an element, and is bitwise repeatable (`dtable_fixed_point_reference`
+    gives its bits); d_x is summed per point in a fixed order."""
     L, T, F, n, d, dev, info = _kernel_args(table, x, cfg, hash, gather_dtype)
     cuda_build.check_tensor("g", g, (n, L * F), dev)
     if g.data_ptr() % 16:
         raise ValueError("g: the kernels' vector loads need 16-byte alignment")
     lib = cuda_build.library()
     d_table = torch.empty((L, T, F), dtype=torch.float32, device=dev)
-    acc = torch.empty((L, T, F), dtype=torch.int64, device=dev)
+    acc = torch.empty((MAX_WORDS, L, T, F), dtype=torch.int64, device=dev)  # word i of each
     gmax = torch.empty((1,), dtype=torch.int32, device=dev)
     d_x = torch.empty((n, d), dtype=torch.float32, device=dev) if need_dx else None
     with torch.cuda.device(dev):

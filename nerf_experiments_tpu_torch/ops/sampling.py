@@ -11,7 +11,8 @@ Reference semantics:
     deterministic inverse-CDF sampling with evenly spaced quantiles and
     linear in-bin placement.
 
-Randomness comes from an explicit `torch.Generator`.
+Randomness comes from an explicit `torch.Generator`, or from uniforms handed
+in (`u=`: a test's way to give both packages the same draws).
 """
 from __future__ import annotations
 
@@ -35,16 +36,20 @@ def sample_stratified(
     strategy: str = "stratified_uniform",
     offset_size: float = 0.0,
     device=None,
+    u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Uniform-bin coarse sampling. Returns (t_start, t_end), each (N, S)."""
+    """Uniform-bin coarse sampling. Returns (t_start, t_end), each (N, S).
+    "stratified_uniform" draws its (N, S) uniforms from `generator` unless
+    they are given as `u`."""
     interval = (far - near) / n_samples
     t = torch.linspace(near, far - interval, n_samples, device=device)
     t = t.expand(n_rays, n_samples)
     if strategy == "stratified_uniform":
-        if generator is None:
-            raise ValueError("stratified_uniform requires a generator")
-        t = t + torch.rand((n_rays, n_samples), generator=generator,
-                           device=device) * interval
+        if u is None:
+            if generator is None:
+                raise ValueError("stratified_uniform requires a generator")
+            u = torch.rand((n_rays, n_samples), generator=generator, device=device)
+        t = t + u * interval
     elif strategy != "equidistant":
         raise ValueError(f"unknown sampling strategy {strategy!r}")
 
@@ -54,6 +59,16 @@ def sample_stratified(
         t = t + torch.rand((n_rays, 1), generator=generator,
                            device=device) * interval * offset_size
     return intervals_from_t(t, far)
+
+
+def broadcast_bins(t: torch.Tensor, block: int) -> torch.Tensor:
+    """(N / block, S) bins of the first ray of each run of `block` rays ->
+    (N, S), each row repeated for its run (a contiguous copy when block > 1:
+    the kernels take row-major bins)."""
+    if block == 1:
+        return t
+    n_rep, s = t.shape
+    return t[:, None, :].expand(n_rep, block, s).reshape(n_rep * block, s)
 
 
 def t_query(t_start: torch.Tensor, t_end: torch.Tensor, strategy: str = "middle") -> torch.Tensor:
@@ -71,12 +86,14 @@ def sample_pdf(
     n_samples: int,
     generator: Optional[torch.Generator] = None,
     eps: float = 1e-8,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Inverse-CDF resampling from a piecewise-constant PDF over bins.
 
     t_edges (N, B+1) bin edges; weights (N, B) nonnegative bin masses.
     Returns sorted t samples (N, n_samples): evenly spaced quantiles without
-    a generator, stratified-jittered quantiles with one.
+    a generator, stratified-jittered quantiles with one (or with its (N,
+    n_samples) uniforms given as `u`).
     """
     n_rays, n_bins = weights.shape
     w = weights + eps
@@ -84,7 +101,9 @@ def sample_pdf(
     cdf = torch.cat([torch.zeros_like(w[:, :1]), torch.cumsum(pdf, dim=-1)], dim=-1)
 
     steps = torch.arange(n_samples, dtype=w.dtype, device=w.device)
-    if generator is None:
+    if u is not None:
+        u = (steps + u) / n_samples
+    elif generator is None:
         u = ((steps + 0.5) / n_samples).expand(n_rays, n_samples).contiguous()
     else:
         u = (steps + torch.rand((n_rays, n_samples), generator=generator,
@@ -107,12 +126,13 @@ def sample_pdf_weighted_intervals(
     n_samples: int,
     far: float,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fine sampling (`_sample_t_pdf_weighted`): bin edges from the coarse
     intervals, n_samples inverse-CDF points (monotone by construction, so no
     sort), back to (t_start, t_end) bins."""
     edges = torch.cat([t_coarse_start, t_coarse_end[:, -1:]], dim=1)
-    t = sample_pdf(edges, weights, n_samples, generator=generator)
+    t = sample_pdf(edges, weights, n_samples, generator=generator, u=u)
     return intervals_from_t(t, far)
 
 

@@ -7,8 +7,12 @@ configs (dense and proposal-hierarchical), the Mip-NeRF / Mip-BARF configs
 (integrated encodings, shared proposal net, density scale 21) and any other
 radiance field behind the model-definition interface (`model_def`; the
 fused-MLP-chain plug `FusedNerfMLPDef`, the hash-grid NeRF of
-`run_3d_ingp`), which train through the plain step; the occupancy grid and
-block-coarse training and serving come later (ROADMAP A9).
+`run_3d_ingp`), which train through the plain step. The coarse stage is a
+proposal net or the occupancy grid (`ops/occgrid.py`: the grid is a buffer
+of the parameters, refreshed after the update every `update_every` steps);
+with `train_coarse_block` > 1 the fused step runs the coarse stage on one
+ray of each block of raster-consecutive rays and shares its fine bins with
+the block, and `render_block_coarse` serves that way.
 
 `forward(..., fused=True)` runs the radiance pass through the flagship render
 kernel (`ops/train_megakernel.py:flagship_render`, no gradient: eval and
@@ -36,7 +40,7 @@ from nerf_experiments_tpu_torch.data.sampler import blurred_pixel_colors
 from nerf_experiments_tpu_torch.encodings.fourier import encode_position
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.models.common import ParamGroup, softplus8
-from nerf_experiments_tpu_torch.ops import render, sampling
+from nerf_experiments_tpu_torch.ops import occgrid, render, sampling
 from nerf_experiments_tpu_torch.ops.fused_mlp import fused_chain
 from nerf_experiments_tpu_torch.ops.metrics import psnr
 from nerf_experiments_tpu_torch.ops.train_megakernel import (
@@ -46,6 +50,7 @@ from nerf_experiments_tpu_torch.ops.train_megakernel import (
     kernels_fit,
 )
 from nerf_experiments_tpu_torch.training import optim
+from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,11 +149,19 @@ class BarfConfig:
     samples_per_ray_proposal: int = 0  # 0 => no hierarchical sampling
     proposal: Optional[Any] = None  # None => radiance's architecture
     share_proposal_net: bool = False  # MipNeRF style (model_mip.py:36)
+    # occupancy-grid guided sampling (ops/occgrid.py): the alternative to the
+    # proposal net, exclusive with samples_per_ray_proposal > 0
+    occ: Optional[occgrid.OccGridConfig] = None
     uniform_sampling_strategy: str = "stratified_uniform"
     uniform_sampling_offset_size: float = 0.0
     integration_strategy: str = "middle"
     coarse_loss_weight: float = 1.0
     density_scale: float = render.DENSITY_SCALE
+    # block-coarse training (train_step_fused only): with batches of aligned
+    # runs of this many raster-consecutive rays (TrainerConfig.batch_block),
+    # the coarse stage runs on the first ray of each run and its fine bins
+    # serve the run; the coarse loss is over those rays. 1 = off.
+    train_coarse_block: int = 1
 
     optimize_camera: bool = True
     camera_learning_rate_start: float = 1e-3
@@ -167,6 +180,10 @@ class BarfConfig:
         return self.samples_per_ray_proposal > 0
 
     @property
+    def use_occ(self) -> bool:
+        return self.occ is not None
+
+    @property
     def camera_group(self) -> ParamGroup:
         return ParamGroup(
             self.camera_learning_rate_start,
@@ -178,14 +195,18 @@ class BarfConfig:
 
 class BarfParams(nn.Module):
     """The system's parameters under the JAX package's names: `radiance`,
-    optional `proposal`, and `camera` (rotation, translation)."""
+    optional `proposal`, and `camera` (rotation, translation); and the
+    occupancy grid `occ` as a buffer (state, not a learned parameter: no
+    optimizer moves it, and `state_dict`, hence checkpoints and the
+    trainer's rollback snapshots, carry it)."""
 
     def __init__(self, radiance: nn.Module, camera: extrinsics.Extrinsics,
-                 proposal: Optional[nn.Module] = None):
+                 proposal: Optional[nn.Module] = None, occ: Optional[torch.Tensor] = None):
         super().__init__()
         self.radiance = radiance
         self.proposal = proposal
         self.camera = camera
+        self.register_buffer("occ", occ)
 
 
 def _proposal_def(cfg: BarfConfig):
@@ -193,26 +214,33 @@ def _proposal_def(cfg: BarfConfig):
 
 
 def init(generator: torch.Generator, cfg: BarfConfig, device=None) -> BarfParams:
-    """Fresh parameters drawn from `generator` (radiance, then proposal)."""
+    """Fresh parameters drawn from `generator` (radiance, then proposal), and
+    the occupancy grid at its initial fill."""
+    if cfg.use_occ and cfg.use_proposal:
+        raise ValueError("the occupancy grid and the proposal net are mutually exclusive")
     radiance = model_def(cfg.radiance).init(generator, device=device)
     proposal = None
     if cfg.use_proposal and not cfg.share_proposal_net:
         proposal = _proposal_def(cfg).init(generator, device=device)
     camera = extrinsics.init(cfg.n_training_images, device=device)
-    return BarfParams(radiance, camera, proposal)
+    occ = occgrid.init_grid(cfg.occ, device=device) if cfg.use_occ else None
+    return BarfParams(radiance, camera, proposal, occ)
 
 
 def params_from_numpy(tree: Dict, cfg: BarfConfig, device=None) -> BarfParams:
     """The JAX package's whole-model pytree {"radiance", ["proposal"],
-    "camera": {"rotation", "translation"}} -> BarfParams."""
+    ["occ"], "camera": {"rotation", "translation"}} -> BarfParams."""
     radiance = model_def(cfg.radiance).from_numpy(tree["radiance"], device=device)
     proposal = None
     if "proposal" in tree:
         proposal = _proposal_def(cfg).from_numpy(tree["proposal"], device=device)
+    occ = None
+    if "occ" in tree:
+        occ = torch.tensor(np.asarray(tree["occ"], np.float32), device=device)
     cam = {k: torch.tensor(np.asarray(tree["camera"][k], np.float32), device=device)
            for k in ("rotation", "translation")}
     return BarfParams(radiance, extrinsics.Extrinsics(cam["rotation"], cam["translation"]),
-                      proposal)
+                      proposal, occ)
 
 
 def _eval_model(mdef, model: nn.Module, origs, dirs, t_start, t_end, pixel_width,
@@ -259,7 +287,9 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(rgb_fine, rgb_coarse | None) — `NerfInterpolation.forward:417-486`.
     Differentiable (the plain train step's objective runs through it); the
-    fine bins of a hierarchical config are constants, as in the JAX package.
+    fine bins of a hierarchical or occupancy-grid config are constants, as in
+    the JAX package. The occupancy grid's bins are jittered whenever
+    `stratified` (they need the generator then, whatever the strategy).
 
     fused=True (eval and serving only: no gradient) runs the radiance pass
     through `flagship_render` and needs `can_fuse_render(cfg)`."""
@@ -268,8 +298,11 @@ def forward(
     ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
     strategy = cfg.uniform_sampling_strategy if stratified else "equidistant"
     offset = cfg.uniform_sampling_offset_size if stratified else 0.0
-    needs_gen = strategy == "stratified_uniform" or offset != 0.0
+    needs_gen = (strategy == "stratified_uniform" or offset != 0.0
+                 or (cfg.use_occ and stratified))
     gen = generator if needs_gen else None
+    if needs_gen and gen is None:
+        raise ValueError("stratified bins of this config need a generator")
     if fused and not can_fuse_render(cfg):
         raise ValueError("fused=True needs a config that can_fuse_render accepts")
 
@@ -288,22 +321,30 @@ def forward(
             dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
         tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
             tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+    elif cfg.use_occ:
+        tf_start, tf_end = occgrid.sample_intervals(
+            params.occ, cfg.occ, ray_origs, ray_dirs, cfg.near, cfg.far,
+            cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
     else:
         tf_start, tf_end = stratified_bins(cfg.samples_per_ray_radiance)
 
-    if fused:
-        rgb_fine, _, _ = flagship_render(
-            params.radiance, cfg.radiance, ray_origs, ray_dirs, tf_start, tf_end,
-            alpha_pos, alpha_dir, density_scale=cfg.density_scale)
-        return rgb_fine, rgb_coarse
+    return rgb_fine_pass(params, cfg, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
+                         alpha_pos, alpha_dir, pixel_width_sigma, fused), rgb_coarse
 
+
+def rgb_fine_pass(params: BarfParams, cfg: BarfConfig, ray_origs, ray_dirs, t_start, t_end,
+                  pixel_width, alpha_pos, alpha_dir, pixel_width_sigma: float = 0.0,
+                  fused: bool = False) -> torch.Tensor:
+    """The radiance pass over fine bins: rgb (N, 3), through `flagship_render`
+    when `fused`, else the model definition and `render_rays_auto`."""
+    if fused:
+        return flagship_render(params.radiance, cfg.radiance, ray_origs, ray_dirs, t_start,
+                               t_end, alpha_pos, alpha_dir, density_scale=cfg.density_scale)[0]
     dens_f, rgb_f_samples = _eval_model(
-        model_def(cfg.radiance), params.radiance, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
-        alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
-    )
-    rgb_fine, _ = render.render_rays_auto(
-        dens_f, rgb_f_samples, tf_end - tf_start, density_scale=cfg.density_scale)
-    return rgb_fine, rgb_coarse
+        model_def(cfg.radiance), params.radiance, ray_origs, ray_dirs, t_start, t_end,
+        pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma)
+    return render.render_rays_auto(dens_f, rgb_f_samples, t_end - t_start,
+                                   density_scale=cfg.density_scale)[0]
 
 
 @dataclasses.dataclass
@@ -323,6 +364,11 @@ def make_groups(cfg: BarfConfig, params: BarfParams):
     if params.proposal is not None:
         groups["proposal"] = _proposal_def(cfg).param_group
         by_label["proposal"] = list(params.proposal.parameters())
+    if params.occ is not None:
+        # the occupancy grid is a buffer, refreshed by the train step: a
+        # frozen group with no parameters keeps the JAX package's lr row
+        groups["occ"] = ParamGroup(0.0, 0.0, 0)
+        by_label["occ"] = []
     if not cfg.optimize_camera:
         groups["camera"] = ParamGroup(0.0, 0.0, 0)
     return groups, by_label
@@ -379,10 +425,46 @@ def loss_fn(
     return loss, metrics
 
 
-def _apply_update(state: TrainState, metrics: Dict) -> Tuple[TrainState, Dict]:
-    """Non-finite guard + multi-group Adam, in place."""
+def _occ_density_fn(cfg: BarfConfig, radiance: nn.Module, alpha_pos, alpha_dir):
+    """Positions (M, 3) -> densities (M,) of the radiance net at the current
+    annealing alphas, for `occgrid.update_grid`: the direction zero (the
+    density head takes none) and, for the integrated encoders, a cell-sized
+    frustum (pixel width 0, t from 0 to the cell's size)."""
+    mdef = model_def(cfg.radiance)
+    cell = cfg.occ.cell
+
+    def fn(pos):
+        zeros = pos.new_zeros((pos.shape[0], 1))
+        return mdef.apply(radiance, pos, torch.zeros_like(pos), zeros, zeros, zeros + cell,
+                          alpha_pos, alpha_dir)[0]
+
+    return fn
+
+
+@torch.no_grad()
+def _maybe_refresh_occ(cfg: BarfConfig, params: BarfParams, step: int, generator,
+                       alpha_pos, alpha_dir) -> None:
+    """The post-update occupancy refresh (every `cfg.occ.update_every` steps,
+    step 0 included), in place into the buffer. Its jitter comes from a
+    generator seeded from the step generator's seed and 0x0CC (the JAX
+    package's `fold_in(key, 0x0CC)`), so it does not depend on how much of
+    the step's stream was drawn."""
+    if not cfg.use_occ or step % cfg.occ.update_every:
+        return
+    jitter = torch.Generator(device=params.occ.device).manual_seed(
+        mix_seed(generator.initial_seed(), 0x0CC))
+    params.occ.copy_(occgrid.update_grid(
+        params.occ, cfg.occ, _occ_density_fn(cfg, params.radiance, alpha_pos, alpha_dir),
+        jitter))
+
+
+def _apply_update(state: TrainState, cfg: BarfConfig, metrics: Dict, generator,
+                  alpha_pos, alpha_dir) -> Tuple[TrainState, Dict]:
+    """Non-finite guard + multi-group Adam, then the occupancy refresh at the
+    step before its increment, in place."""
     metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
     state.optimizer.step()
+    _maybe_refresh_occ(cfg, state.params, state.step, generator, alpha_pos, alpha_dir)
     state.step += 1
     return state, metrics
 
@@ -398,13 +480,13 @@ def train_step(
     pixel_width_sigma: float = 0.0,
 ) -> Tuple[TrainState, Dict]:
     """One optimization step: torch autograd of `loss_fn`, the non-finite
-    guard and the multi-group Adam update."""
+    guard and the multi-group Adam update (and the occupancy refresh)."""
     state.optimizer.zero_grad()
     loss, metrics = loss_fn(state.params, cfg, batch, generator, alpha_pos, alpha_dir,
                             blur_sigma, pixel_width_sigma)
     loss.backward()
     metrics["loss"] = loss.detach()
-    return _apply_update(state, metrics)
+    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir)
 
 
 def train_step_fused(
@@ -423,7 +505,14 @@ def train_step_fused(
     from the kernel's d_origs / d_dirs. Equal to `train_step` up to rounding
     (the fine bins are constants in both): radiance <- fine MSE, proposal <-
     coarse MSE, camera <- both; with `share_proposal_net` the coarse
-    gradients add into the radiance net's."""
+    gradients add into the radiance net's.
+
+    With `train_coarse_block` = b > 1 the coarse stage (proposal net or
+    occupancy grid) sees every b-th ray (the batch comes as aligned runs of
+    b rays, `TrainerConfig.batch_block`), its loss is over those rays, and
+    its fine bins serve each run. Autograd through the slice scatters the
+    coarse stage's ray gradients back into full-size ones, as the JAX
+    package's VJP does."""
     if not can_fuse_train_step(cfg):
         raise ValueError("train_step_fused needs a config that can_fuse_train_step accepts")
     params = state.params
@@ -435,32 +524,48 @@ def train_step_fused(
     n_rays = origs.shape[0]
     strategy = cfg.uniform_sampling_strategy
     offset = cfg.uniform_sampling_offset_size
-    gen = generator if (strategy == "stratified_uniform" or offset != 0.0) else None
+    needs_gen = strategy == "stratified_uniform" or offset != 0.0 or cfg.use_occ
+    gen = generator if needs_gen else None
+    if needs_gen and gen is None:
+        raise ValueError("stratified bins of this config need a generator")
+    blk = max(1, cfg.train_coarse_block)
+    if n_rays % blk:
+        raise ValueError(f"train_coarse_block {blk} must divide the batch ({n_rays} rays)")
+    n_rep = n_rays // blk
+
+    def rep(x):  # the first ray of each run
+        return x[::blk]
 
     roots, root_grads, metrics = [], [], {}
     loss_coarse = None
     if cfg.use_proposal:
         tc_start, tc_end = sampling.sample_stratified(
-            gen, n_rays, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
+            gen, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
             device=origs.device)
         dens_c, rgb_c_samples = _eval_model(
-            *_proposal_model(params, cfg), origs, dirs, tc_start, tc_end,
-            batch["pixel_width"], alpha_pos, alpha_dir, cfg.integration_strategy)
+            *_proposal_model(params, cfg), rep(origs), rep(dirs), tc_start, tc_end,
+            rep(batch["pixel_width"]), alpha_pos, alpha_dir, cfg.integration_strategy)
         rgb_coarse, weights = render.render_rays_auto(
             dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
-        loss_coarse = torch.mean((rgb_coarse - target) ** 2)
+        loss_coarse = torch.mean((rgb_coarse - rep(target)) ** 2)
         roots.append(cfg.coarse_loss_weight * loss_coarse)
         root_grads.append(torch.ones_like(loss_coarse))
         t_start, t_end = sampling.sample_pdf_weighted_intervals(
             tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+    elif cfg.use_occ:
+        t_start, t_end = occgrid.sample_intervals(
+            params.occ, cfg.occ, rep(origs), rep(dirs), cfg.near, cfg.far,
+            cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
     else:
         t_start, t_end = sampling.sample_stratified(
             gen, n_rays, cfg.samples_per_ray_radiance, cfg.near, cfg.far, strategy, offset,
             device=origs.device)
+    t_start = sampling.broadcast_bins(t_start, blk).contiguous()
+    t_end = sampling.broadcast_bins(t_end, blk).contiguous()
 
     rgb_fine, grads_rad, d_origs, d_dirs = flagship_train_grads(
         params.radiance, cfg.radiance, origs.detach().contiguous(),
-        dirs.detach().contiguous(), t_start.contiguous(), t_end.contiguous(), target,
+        dirs.detach().contiguous(), t_start, t_end, target,
         alpha_pos, alpha_dir, density_scale=cfg.density_scale)
     for name, p in params.radiance.named_parameters():
         p.grad = grads_rad[name]
@@ -474,7 +579,7 @@ def train_step_fused(
         loss = loss + cfg.coarse_loss_weight * loss_coarse.detach()
         metrics["loss_coarse"] = loss_coarse.detach()
     metrics.update(loss_fine=loss_fine, psnr=psnr(loss_fine), loss=loss)
-    return _apply_update(state, metrics)
+    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir)
 
 
 def make_train_step(cfg: BarfConfig, fused: bool = False):
@@ -520,6 +625,54 @@ def use_fused_render(cfg: BarfConfig, device) -> bool:
     """Eval rendering goes through the render kernel when the config allows
     it and the tensors live on a CUDA device."""
     return can_fuse_render(cfg) and torch.device(device).type == "cuda"
+
+
+@torch.no_grad()
+def render_block_coarse(
+    params: BarfParams,
+    cfg: BarfConfig,
+    ray_origs: torch.Tensor,
+    ray_dirs: torch.Tensor,
+    alpha_pos=None,
+    alpha_dir=None,
+    block: int = 4,
+    pixel_width: float = 1e-3,
+) -> torch.Tensor:
+    """Serving render (no gradient) with the coarse stage on every
+    `block`-th ray: rays in raster order, each run of `block` rays shares
+    the fine bins of its first ray's coarse stage (proposal net or occupancy
+    grid, deterministic), and the radiance pass still evaluates every ray
+    (through the render kernel when `use_fused_render`). block=1 gives the
+    bits of `forward(..., stratified=False)` with the same pixel width."""
+    n_rays = ray_origs.shape[0]
+    if n_rays % block:
+        raise ValueError(f"block {block} must divide the rays ({n_rays})")
+    ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
+    rep_origs, rep_dirs = ray_origs[::block], ray_dirs[::block]
+    n_rep = rep_origs.shape[0]
+    pw = torch.full((n_rep, 1), pixel_width, device=ray_origs.device)
+    if cfg.use_occ:
+        t_start, t_end = occgrid.sample_intervals(
+            params.occ, cfg.occ, rep_origs, rep_dirs, cfg.near, cfg.far,
+            cfg.samples_per_ray_radiance)
+    elif cfg.use_proposal:
+        tc_start, tc_end = sampling.sample_stratified(
+            None, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, "equidistant",
+            device=ray_origs.device)
+        dens_c, rgb_c = _eval_model(*_proposal_model(params, cfg), rep_origs, rep_dirs,
+                                    tc_start, tc_end, pw, alpha_pos, alpha_dir,
+                                    cfg.integration_strategy)
+        _, weights = render.render_rays_auto(dens_c, rgb_c, tc_end - tc_start,
+                                             density_scale=cfg.density_scale)
+        t_start, t_end = sampling.sample_pdf_weighted_intervals(
+            tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
+    else:
+        raise ValueError("render_block_coarse needs a coarse stage (proposal or occupancy)")
+    return rgb_fine_pass(params, cfg, ray_origs, ray_dirs,
+                         sampling.broadcast_bins(t_start, block),
+                         sampling.broadcast_bins(t_end, block),
+                         torch.full((n_rays, 1), pixel_width, device=ray_origs.device),
+                         alpha_pos, alpha_dir, fused=use_fused_render(cfg, ray_origs.device))
 
 
 def pose_error_metric(params: BarfParams, camera_origins_raw, camera_origins_noisy):

@@ -30,7 +30,7 @@ from torch import nn
 from nerf_experiments_tpu_torch.cameras import calibration, extrinsics
 from nerf_experiments_tpu_torch.models import garf
 from nerf_experiments_tpu_torch.models.common import ParamGroup
-from nerf_experiments_tpu_torch.ops import proposal, render
+from nerf_experiments_tpu_torch.ops import proposal, render, sampling
 from nerf_experiments_tpu_torch.ops.garf_megakernel import (
     garf_radiance_render,
     garf_radiance_train_grads,
@@ -68,6 +68,10 @@ class GarfSystemConfig:
     # True: the interlevel loss reaches the camera extrinsics (reference
     # semantics); False detaches the rays in the proposal branch only
     interlevel_camera_grads: bool = True
+    # block-coarse training (train_step_fused only): the proposal stage runs
+    # on the first ray of each aligned run of this many raster-consecutive
+    # rays (TrainerConfig.batch_block) and its t bins serve the run. 1 = off.
+    train_coarse_block: int = 1
 
     def act_anneal_at(self, step: int) -> float:
         """gamma(step): linear 0 -> 1 over [start, end); 1.0 when disabled. A
@@ -298,20 +302,34 @@ def train_step_fused(state: TrainState, cfg: GarfSystemConfig, batch: Dict,
     proposal stage runs once under autograd (the JAX package's `sample_vjp`):
     its t edges feed the kernel detached, its histograms carry the interlevel
     gradient, and one `torch.autograd.backward` over [interlevel loss, origs,
-    dirs] with [1, d_origs, d_dirs] sums the camera gradient."""
+    dirs] with [1, d_origs, d_dirs] sums the camera gradient.
+
+    With `train_coarse_block` = b > 1 the proposal stage sees every b-th ray
+    (the batch comes as aligned runs of b rays), its bins serve each run, and
+    the interlevel loss matches its histograms to the run's mean fine
+    weights (with b duplicate rays this is the unblocked loss); autograd
+    through the slice scatters the stage's ray gradients back."""
     params = state.params
     state.optimizer.zero_grad()
     origs, dirs = calibration.training_transform_rays(
         params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
-    t_starts, t_ends, aux = _sample_bins(params, cfg, generator,
-                                         *_interlevel_rays(cfg, origs, dirs), True,
+    blk = max(1, cfg.train_coarse_block)
+    n_rays = origs.shape[0]
+    if n_rays % blk:
+        raise ValueError(f"train_coarse_block {blk} must divide the batch ({n_rays} rays)")
+    o_il, d_il = _interlevel_rays(cfg, origs, dirs)
+    t_starts, t_ends, aux = _sample_bins(params, cfg, generator, o_il[::blk], d_il[::blk], True,
                                          act_anneal)
+    t_starts = sampling.broadcast_bins(t_starts, blk)
+    t_ends = sampling.broadcast_bins(t_ends, blk)
     targets = batch["colors"][:, -1].contiguous()
     rgb, weights, grads_rad, d_origs, d_dirs = garf_radiance_train_grads(
         params.radiance, cfg.net, origs.detach().contiguous(), dirs.detach().contiguous(),
         t_starts, t_ends, targets, act_anneal)
     for name, p in params.radiance.named_parameters():
         p.grad = grads_rad[name]
+    if blk > 1:
+        weights = weights.reshape(n_rays // blk, blk, -1).mean(dim=1)
     proposal_loss = proposal.compute_loss(aux, weights)
     torch.autograd.backward([proposal_loss, origs, dirs],
                             [torch.ones_like(proposal_loss), d_origs, d_dirs])

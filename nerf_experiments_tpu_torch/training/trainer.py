@@ -36,20 +36,7 @@ import torch
 
 from nerf_experiments_tpu_torch.data import sampler as sampler_lib
 from nerf_experiments_tpu_torch.training.loggers import MetricLogger
-
-_MASK63 = (1 << 63) - 1
-
-
-def mix_seed(*values: int) -> int:
-    """A 63-bit seed from integers (SplitMix64 over them): the port's
-    `fold_in`."""
-    x = 0x9E3779B97F4A7C15
-    for v in values:
-        x = (x ^ (int(v) & 0xFFFFFFFFFFFFFFFF)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
-        x = (x ^ (x >> 31)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
-        x ^= x >> 29
-    return x & _MASK63
-
+from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
 _VAL_STREAM = 1  # validation's seed stream, apart from the train steps'
 
@@ -80,6 +67,11 @@ class TrainerConfig:
     rollback_snapshot_every_n_steps: int = 1000
     rollback_max: int = 8
     rollback_warmup_steps: int = 500  # no trigger before the EMA settles
+    # Block-coarse training batches: aligned runs of `batch_block`
+    # raster-consecutive rays instead of independent rays, so that the
+    # system's step can share its coarse stage across each run (the training
+    # analog of systems.barf.render_block_coarse). 1 = independent rays.
+    batch_block: int = 1
 
 
 class Trainer:
@@ -127,6 +119,15 @@ class Trainer:
         self._snapshot = None  # (step, state copy)
         self._last_pose_step = -(10 ** 12)  # first log step always records
         self.steps_per_epoch = max(1, train_store.n_rays // cfg.batch_size)
+        block = max(1, cfg.batch_block)
+        # an aligned run never crosses an image (each image is a contiguous
+        # run of hw rays in the store), so its rays share one camera
+        if block > 1 and (cfg.batch_size % block or train_store.n_rays % block
+                          or train_store.hw % block):
+            raise ValueError(
+                f"batch_block {block} must divide the batch ({cfg.batch_size}), the rays "
+                f"({train_store.n_rays}) and the rays of an image ({train_store.hw})")
+        self._block = block
         self._base_seed = self._base_seed0 = mix_seed(cfg.seed)
         self._generator = torch.Generator(device=train_store.device)
 
@@ -138,9 +139,14 @@ class Trainer:
         return self._generator.manual_seed(mix_seed(base_seed, step))
 
     def _batch(self, generator: torch.Generator) -> dict:
-        store = self.train_store
-        idx = torch.randint(0, store.n_rays, (self.cfg.batch_size,), generator=generator,
-                            device=store.device)
+        """The step's batch: independent rays, or aligned runs of
+        `batch_block` rays from run starts drawn by `generator`."""
+        store, block = self.train_store, self._block
+        idx = torch.randint(0, store.n_rays // block, (self.cfg.batch_size // block,),
+                            generator=generator, device=store.device)
+        if block > 1:
+            idx = (block * idx[:, None]
+                   + torch.arange(block, device=store.device)).reshape(-1)
         return sampler_lib.gather_batch_arrays(store.arrays(), store.pixel_width, idx)
 
     def regen_batch(self, step: int) -> dict:

@@ -115,14 +115,25 @@ WORST_MAX_ABS_G = [1.0, 0.7, float(np.nextafter(np.float32(1), np.float32(0))),
 @pytest.mark.parametrize("dim", [2, 3])
 def test_fixed_point_shift_never_overflows(max_abs_g, n, dim):
     """The worst case of a row: every point's 2^d corners in that one row,
-    every w = 1 and every |g| = max|g|. The quantised term is rounded from
+    every w = 1 and every |g| = max|g|. The first word is rounded from
     max|g| 2^s in fp32, as the kernel and the emulation do, and 2^d n of them
-    must stay inside int64, with either sign. Where the shift is not clamped
-    it is the largest that does (at s + 1 the bound 2^d n 2^(e+s+1) reaches
-    2^63), and a term keeps 2^-(62 - d - ceil(log2 n)) of max|g|."""
+    must stay inside int64, with either sign; so must 2^d n of each later
+    word, each at most 2^(K-1) (a remainder of 1/2 times 2^K). Where the
+    shift is not clamped it is the largest that does (at s + 1 the bound 2^d
+    n 2^(e+s+1) reaches 2^63), and a term keeps 2^-(62 - d - ceil(log2 n))
+    of max|g| in its first word; K is the largest shift between words that
+    stays inside int64; the words reach 2^-149 (fp32's smallest step) unless
+    there are four."""
     s = thash.fixed_point_shift(max_abs_g, n, dim)
     q = round(float(np.float32(max_abs_g) * np.float32(2.0 ** s)))
     assert 0 <= 2 ** dim * n * q <= 2**63 - 1
+    k = thash.fixed_point_lo_shift(n, dim)
+    assert 2 ** dim * n * 2 ** (k - 1) <= 2**63 - 1
+    assert 2 ** dim * 2 ** (n - 1).bit_length() * 2 ** k >= 2**63
+    assert 2.0 ** k < float(np.finfo(np.float32).max)  # 2^K is an fp32 scale
+    words = thash.fixed_point_words(s, k)
+    assert 2 <= words <= thash.MAX_WORDS
+    assert s + (words - 1) * k >= 149 or words == thash.MAX_WORDS
     lo, hi = thash.SHIFT_RANGE
     if lo < s < hi:
         e = math.frexp(max_abs_g)[1]
@@ -155,14 +166,53 @@ def test_fixed_point_dtable_of_a_non_finite_cotangent_is_nan():
         assert torch.isnan(thash.dtable_fixed_point_reference(tcfg, x, g)).all()
 
 
+def exact_dtable(cfg, x, g, hash="xor"):
+    """(the sums of K8's fp32 terms in float64, the number of terms and the
+    sum of |term| of each element)."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features
+    exact = torch.zeros((L * T, F), dtype=torch.float64)
+    terms = torch.zeros((L * T, 1), dtype=torch.float64)
+    mass = torch.zeros((L * T, F), dtype=torch.float64)
+    for rows, c in thash.dtable_terms(cfg, x, g, hash):
+        exact.index_add_(0, rows, c.double())
+        terms.index_add_(0, rows, torch.ones((rows.shape[0], 1), dtype=torch.float64))
+        mass.index_add_(0, rows, c.double().abs())
+    return exact, terms, mass
+
+
+def one_word_dtable(cfg, x, g, hash="xor"):
+    """The table gradient with the first word alone (each term rint(c 2^s),
+    summed in int64, times 2^-s): K8 before its later words."""
+    s = thash.fixed_point_shift(float(g.abs().max()), x.shape[0], cfg.dim)
+    acc = torch.zeros((cfg.n_levels * cfg.table_size, cfg.n_features), dtype=torch.int64)
+    for rows, c in thash.dtable_terms(cfg, x, g, hash):
+        acc.index_add_(0, rows, torch.round((c * np.float32(2.0 ** s)).double()).long())
+    return (acc.double() * 2.0 ** -s).float()
+
+
+def quantum_bound(cfg, x, g, exact, terms, mass):
+    """Each term of an element is within half its last word's quantum
+    2^-(s+(W-1)K) of its words, so the element is within (its terms) x
+    2^-(s+(W-1)K+1) of the exact sum, plus fp32's last rounding, plus the
+    float64 reference's own rounding (2^-46 of the sum of |terms|)."""
+    n = x.shape[0]
+    s = thash.fixed_point_shift(float(g.abs().max()), n, cfg.dim)
+    k = thash.fixed_point_lo_shift(n, cfg.dim)
+    last = s + (thash.fixed_point_words(s, k) - 1) * k
+    return (terms * 2.0 ** -(last + 1) * (1 + 2.0**-22) + exact.abs() * 2.0**-23
+            + mass * 2.0**-46)
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_fixed_point_dtable_error_is_half_a_quantum_a_term(dim):
-    """K8's precision limit, on its emulation: each term is rounded to a
-    multiple of 2^-s, so an element of d_table is within (its terms) x
-    2^-(s+1) of the exact sum of its fp32 terms, plus fp32's last rounding.
-    That error is absolute: with level 0's cotangent 1e-16 of the rest, every
-    term of level 0 lies below 2^-(s+1) and its d_table is 0, where the plain
-    fp32 scatter keeps it."""
+    """K8's precision limit, on its emulation: each term is cut into words
+    down to a quantum of 2^-(s+(W-1)K), here below fp32's smallest step, so
+    an element of d_table is its exact sum, rounded once (within its terms x
+    2^-(s+(W-1)K+1) of the exact sum of its fp32 terms, plus fp32's last
+    rounding). With level 0's cotangent 1e-16 of the rest, every term of
+    level 0 lies below the first word's half quantum 2^-(s+1): the first
+    word alone gives 0 there, where the plain fp32 scatter keeps it, and the
+    words keep every element the exact sum has."""
     _, tcfg = cfgs(dim, **SMALL[dim])
     rng = np.random.default_rng(70 + dim)
     x = torch.as_tensor(points(dim, 2000, seed=71 + dim, resolutions=tcfg.level_resolutions))
@@ -171,19 +221,49 @@ def test_fixed_point_dtable_error_is_half_a_quantum_a_term(dim):
     g = torch.as_tensor(g)
     L, T, F = tcfg.n_levels, tcfg.table_size, tcfg.n_features
     s = thash.fixed_point_shift(float(g.abs().max()), x.shape[0], dim)
-    exact = torch.zeros((L * T, F), dtype=torch.float64)
-    terms = torch.zeros((L * T, 1), dtype=torch.float64)
-    for rows, c in thash.dtable_terms(tcfg, x, g):
-        exact.index_add_(0, rows, c.double())
-        terms.index_add_(0, rows, torch.ones((rows.shape[0], 1), dtype=torch.float64))
+    k = thash.fixed_point_lo_shift(x.shape[0], dim)
+    assert s + (thash.fixed_point_words(s, k) - 1) * k >= 149
+    exact, terms, mass = exact_dtable(tcfg, x, g)
     got = thash.dtable_fixed_point_reference(tcfg, x, g).reshape(L * T, F).double()
-    allowed = terms * 2.0 ** -(s + 1) * (1 + 2.0**-22) + exact.abs() * 2.0**-23
-    assert torch.all((got - exact).abs() <= allowed)
-    assert torch.count_nonzero(got[:T]) == 0 and torch.count_nonzero(exact[:T]) > 0
-    assert torch.count_nonzero(got[T:]) == torch.count_nonzero(exact[T:])
+    assert torch.all((got - exact).abs() <= quantum_bound(tcfg, x, g, exact, terms, mass))
+    assert torch.count_nonzero(one_word_dtable(tcfg, x, g)[:T]) == 0
+    assert torch.count_nonzero(exact[:T]) > 0
+    assert torch.equal(got != 0, exact != 0)
     table = torch.zeros((L, T, F), requires_grad=True)
     plain = torch.autograd.grad(thash.encode_reference(table, tcfg, x), table, g)[0]
     assert torch.count_nonzero(plain[0]) == torch.count_nonzero(exact[:T])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("hash", ["xor", "additive"])
+def test_fixed_point_keeps_small_table_gradients(dim, hash):
+    """ROADMAP C4: a cotangent over 30 decades (each g element N(0, 1) times
+    10^U(-30, 0)) on a table whose fine levels take a few terms a row, as a
+    trained INGP step's cotangent and table are (its smallest nonzero
+    elements lie near 1e-26 max|g|). The first word alone gives 0 for
+    elements that `jax.grad` through the JAX encoding gives as nonzero; the
+    emulation of K8 keeps every one of them, and every element within its
+    bound of the exact float64 sum of its fp32 terms (`quantum_bound`)."""
+    grid = dict(n_levels=6, table_size=2**14, resolution_min=4, resolution_max=256)
+    jcfg, tcfg = cfgs(dim, **grid)
+    rng = np.random.default_rng(80 + dim)
+    x = points(dim, 500, seed=81 + dim, resolutions=jcfg.level_resolutions)
+    g = (rng.normal(size=(x.shape[0], jcfg.output_dim))
+         * 10.0 ** rng.uniform(-30.0, 0.0, size=(x.shape[0], jcfg.output_dim)))
+    g = g.astype(np.float32)
+    tbl = np.zeros((jcfg.n_levels, jcfg.table_size, jcfg.n_features), np.float32)
+    encoder = JAX_ENCODERS[(hash, "fp32")]
+    ref = jax.grad(lambda t: jnp.sum(encoder({"table": t}, jcfg, jnp.asarray(x))
+                                     * jnp.asarray(g)))(jnp.asarray(tbl))
+    ref = torch.as_tensor(np.array(ref)).reshape(-1, jcfg.n_features)
+    xt, gt = torch.as_tensor(x), torch.as_tensor(g)
+    got = thash.dtable_fixed_point_reference(tcfg, xt, gt, hash).reshape(ref.shape)
+    kept = ref != 0
+    assert torch.count_nonzero(one_word_dtable(tcfg, xt, gt, hash)[kept] == 0) > 0
+    assert torch.count_nonzero(got[kept] == 0) == 0
+    exact, terms, mass = exact_dtable(tcfg, xt, gt, hash)
+    bound = quantum_bound(tcfg, xt, gt, exact, terms, mass)
+    assert torch.all((got.double() - exact).abs() <= bound)
 
 
 def test_kernel_level_info_is_pinned():

@@ -203,33 +203,52 @@ def test_checkpoint_round_trip(tmp_path):
 @pytest.mark.parametrize("argv", [["--entry", "mip", "--serve_block", "4"],
                                   ["--serve_block", "4"],
                                   ["--entry", "bip", "--serve_block", "2"]])
-def test_render_views_refuses_what_is_not_ported(argv):
-    """Block-coarse serving is not ported for any entry; the Mip and BIP
-    entries themselves are."""
+def test_render_views_refuses_what_is_not_ported(argv, tmp_path):
+    """Block-coarse serving is ported for every entry: these flags no longer
+    refuse, and the run goes on to the checkpoint, which an empty directory
+    does not have (`tests/test_torch_block_coarse.py` serves trained ones)."""
     from nerf_experiments_tpu_torch.experiments import render_views
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        render_views.main(["--ckpt_dir", "unused"] + argv)
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        render_views.main(["--ckpt_dir", str(tmp_path), "--device", "cpu",
+                           "--image_size", "16", "--out_dir", str(tmp_path)] + argv)
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--occ_grid_resolution", "32"],
-                                  ["--train_coarse_block", "4"]])
+# what each entry refuses, and why: multi-device and --conv_blur are not
+# ported; block-coarse training needs the fused step and a coarse stage (the
+# JAX package's asserts)
+REFUSALS = {"--mesh": (NotImplementedError, "not ported"),
+            "--conv_blur": (NotImplementedError, "not ported"),
+            "--occ_grid_resolution": (ValueError, "requires --fused_kernel"),
+            "--train_coarse_block": (ValueError, "requires --fused_kernel|needs a coarse stage")}
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "4x2"],
+                                  ["--occ_grid_resolution", "32", "--train_coarse_block", "4"],
+                                  ["--train_coarse_block", "4", "--fused_kernel"]])
 def test_training_entry_is_not_ported_yet(argv):
-    """`run_barf.main` trains; what its training does not carry yet refuses."""
+    """`run_barf.main` trains, the occupancy grid and block-coarse training
+    included; multi-device training refuses as not ported, and block-coarse
+    training without the fused step or a coarse stage refuses as the JAX
+    package's asserts do, before any data is generated."""
     from nerf_experiments_tpu_torch.experiments import run_barf
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    error, match = REFUSALS[argv[0]]
+    with pytest.raises(error, match=match):
         run_barf.main(argv)
 
 
 @pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--conv_blur"],
                                   ["--train_coarse_block", "4"]])
 def test_garf_entry_refuses_what_is_not_ported(argv):
-    """`garf_main.main` trains; its multi-device, target-blur and
-    block-coarse options refuse before any data is generated."""
+    """`garf_main.main` trains, block-coarse included; its multi-device and
+    target-blur options refuse as not ported, and block-coarse training
+    without the fused step as the JAX package's assert does, before any data
+    is generated."""
     from nerf_experiments_tpu_torch.experiments import garf_main
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    error, match = REFUSALS[argv[0]]
+    with pytest.raises(error, match=match):
         garf_main.main(argv)
 
 
