@@ -132,7 +132,27 @@ Phases, each raising on failure:
      a 16-step window with one refresh for BARF at 8192 rays, 4 steps for
      GARF at 4096), the refresh alone and its share of the window, a profile
      of the occupancy steps (idle share), serving rays/s at 8192-ray chunks
-     with serve_block 1 and 4.
+     with serve_block 1 and 4;
+ 30. the target blur (`ops/image_blur.py`) against its float64 plain version
+     at 100^2 and 32^2 with 81 taps (the folded reflect), and one re-blur of
+     a 100 x 400^2 x 3 stack timed against its bounds;
+ 31. `garf_main --activation gabor --bf16 --fused_kernel --conv_blur` at
+     100^2 with K5, K6, K1 and K3 counted: the targets swap as sigma decays,
+     a `--resume` lands on the uninterrupted run's targets bit for bit, and
+     the train rays/s stay within 2 % of the run without --conv_blur (A, B,
+     B, A);
+ 32. SIREN at run_nerf_siren's defaults, fp32 and bf16: one plain step
+     against the same step with K1 / K3 replaced by their plain versions
+     (fine bins pinned), the step's K1 / K3 launches, `run_nerf_siren` at
+     100^2 (validation PSNR on fixed rays rises over 100 steps), train rays/s
+     at 1024 and 4096 rays;
+ 33. `run_2d_reconstruction` at its defaults: validation PSNR above 15 dB,
+     steps/s;
+ 34. the scene generator (`data/synthetic_fast.py`): `validate` on the card,
+     one 400^2 view at 128 samples, a 12-view 100^2 `generate_dataset` whose
+     poses are byte for byte the numpy path's;
+ 35. `utils/profiling.trace` around two SIREN steps names the K1 / K3
+     launches; `data/native.available()`.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -2971,6 +2991,378 @@ def phase_slice_timing(dev):
     return times
 
 
+# ---- the modules without kernels of their own (phases 30-35): the target
+# blur, GaborF with it, SIREN, the 2-D reconstruction, the scene generator and
+# the tools
+
+BLUR_STACK = (100, 400, 400)  # a 100-view 400^2 train stack: 192 MB of fp32 colour
+SIREN_RAYS = 1024  # run_nerf_siren's batch
+TOL_BLUR = 1e-5  # the fp32 blur against float64: max error over the reference's max
+# GaborF at 100^2, batch 1024: an epoch is 117 steps (validation, through K1,
+# once in 120), a sigma period ~2.3; the rate comparison takes 60 steps
+GARF_BLUR_STEPS = 120
+GARF_RATE_STEPS = 60
+RATE_SLACK = 0.02  # the blur may cost at most 2 % of the training rays/s
+
+
+def blur_plain(images, kernel):
+    """The separable blur in float64 numpy through the same folded band
+    matrices: the plain version of `image_blur.separable_gaussian_blur`."""
+    import numpy as np
+
+    from nerf_experiments_tpu_torch.ops import image_blur
+
+    img = images.double().cpu().numpy()
+    m_h = image_blur.blur_matrix(img.shape[1], kernel).cpu().numpy()
+    m_w = image_blur.blur_matrix(img.shape[2], kernel).cpu().numpy()
+    return np.einsum("uw,nvwc->nvuc", m_w, np.einsum("vh,nhwc->nvwc", m_h, img))
+
+
+def phase_blur(dev):
+    """The target blur on the card against its float64 plain version at 100^2
+    and 32^2 with 81 taps (at 32^2 the half width 40 passes the side: the
+    folded reflect), then one re-blur of a 100 x 400^2 x 3 stack, as the
+    trainer takes it at a sigma milestone (`ConvBlurTargets.flat_colors`:
+    the taps and band matrices on the card, two fp32 matmuls, the flat
+    colours)."""
+    import numpy as np
+
+    from nerf_experiments_tpu_torch.ops import image_blur
+
+    gen = torch.Generator(device=dev).manual_seed(60)
+    for side in (100, 32):
+        images = torch.rand((4, side, side, 3), generator=gen, device=dev)
+        for rel in (0.015, 0.1, 0.0):
+            k = image_blur.gaussian_kernel(81, rel, side, device=dev)
+            got = image_blur.separable_gaussian_blur(images, k)
+            want = blur_plain(images, k)
+            err = float(np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max())
+            log(f"blur {side}^2 K 81 relative sigma {rel}: max err / max {err:.3e} "
+                f"(tol {TOL_BLUR})")
+            require(err <= TOL_BLUR, f"blur at {side}^2, sigma {rel}: err {err}")
+    images = torch.rand(BLUR_STACK + (3,), generator=gen, device=dev)
+    blur = image_blur.ConvBlurTargets(images, relative_sigma_start=0.015)
+    ms = cuda_time_ms(blur.flat_colors, iters=5)
+    dev_ms = device_ms(blur.flat_colors, calls=5)
+    n, h, w = BLUR_STACK
+    elems = n * h * w * 3
+    band_flops = 2 * elems * (h + w)  # the two dense band products
+    tap_flops = 2 * elems * 2 * 81  # what 81 taps a pass need
+    t_bytes = 2 * elems * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"re-blur of {n} x {h}^2 x 3 ({elems * 4 / 1e6:.0f} MB): {ms:.4f} ms a call (CUDA "
+        f"events), {dev_ms:.4f} ms of device time; bounds: bytes (read + write once) "
+        f"{t_bytes:.4f} ms, 81 taps a pass {tap_flops / FP32_FLOP_PER_S * 1e3:.4f} ms, the "
+        f"band products' {band_flops / 1e9:.1f} GFLOP {band_flops / FP32_FLOP_PER_S * 1e3:.4f} "
+        f"ms at the fp32 rate")
+    return {"reblur_ms": ms, "reblur_device_ms": dev_ms}
+
+
+def garf_blur_fit(argv, strip_loggers=False, capture_at=None):
+    """`garf_main.build` + fit with the launches counted: (state, trainer,
+    ConvBlurTargets or None, launches, the targets before the fit, the
+    targets after step `capture_at`). With `strip_loggers` only the target
+    blur stays among the callbacks (a training-rate comparison)."""
+    from nerf_experiments_tpu_torch.experiments import garf_main
+    from nerf_experiments_tpu_torch.ops.image_blur import ConvBlurTargets
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    _, state, trainer = garf_main.build(garf_main.parse_args(argv))
+    blur = next((cb for cb in trainer.callbacks if isinstance(cb, ConvBlurTargets)), None)
+    if strip_loggers:
+        trainer.callbacks = [blur] if blur is not None else []
+    captured = {}
+    if capture_at is not None:
+        def capture(tr, st, step, ef):
+            if step == capture_at:
+                captured["colors"] = tr._train_arrays["colors"].clone()
+        trainer.callbacks.append(capture)
+    start = trainer._train_arrays["colors"].clone()
+    state = trainer.fit(state)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    return state, trainer, blur, launches, start, captured.get("colors")
+
+
+def phase_gaborf_blur(dev, workdir):
+    """`garf_main --activation gabor --bf16 --fused_kernel --conv_blur` at
+    100^2 for 120 steps with K5 (every step), K6 (the image logger) and K1
+    (the validation at the epoch; the proposal stage composites in plain
+    torch) counted: the targets swap as sigma decays; 60 steps, a checkpoint
+    and `--resume` to 120 give the targets of 120 steps in one go bit for bit
+    (also at the resume point); train rays/s over steps 10-60 with and without
+    --conv_blur in turns (A, B, B, A; only the blur among the callbacks)
+    within 2 %."""
+    base = ["--activation", "gabor", "--bf16", "--fused_kernel", "--image_size",
+            str(IMAGE_SIZE), "--batch_size", "1024", "--log_every_n_steps", "10", "--device",
+            str(dev)]
+    blurred = base + ["--conv_blur"]
+    half = GARF_BLUR_STEPS // 2
+    out = os.path.join(workdir, "gaborf_blur")
+    state, trainer, blur, total, start, at_half = garf_blur_fit(
+        blurred + ["--max_steps", str(GARF_BLUR_STEPS), "--out_dir", out], capture_at=half)
+    colors = trainer._train_arrays["colors"]
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    swapped = float((colors - start).abs().max())
+    log(f"garf_main gabor bf16 --conv_blur at {IMAGE_SIZE}^2: {state.step} steps, "
+        f"{blur.n_applied} sigma milestones, sigma {blur.sigma0} -> {blur.sigma:.6f}, targets "
+        f"moved by up to {swapped:.4f} from the start, loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, launches {total}")
+    require(state.step == GARF_BLUR_STEPS and all(math.isfinite(v) for v in losses),
+            "conv_blur run: wrong step count or a non-finite loss")
+    require(blur.n_applied >= 1 and blur.sigma < blur.sigma0 and swapped > 0,
+            "conv_blur run: the targets never swapped")
+    require(torch.equal(colors, blur.flat_colors()), "conv_blur: targets not at the ladder")
+    require(total["garf_train"] == GARF_BLUR_STEPS and total["garf_render"] > 0
+            and total["render_fwd"] > 0, f"conv_blur: K5 / K6 / K1 not launched: {total}")
+
+    split = os.path.join(workdir, "gaborf_blur_split")
+    _, first, _, launches, _, _ = garf_blur_fit(
+        blurred + ["--max_steps", str(half), "--resume", "--out_dir", split])
+    add_launches(total, launches)
+    state, resumed, _, launches, at_resume, _ = garf_blur_fit(
+        blurred + ["--max_steps", str(GARF_BLUR_STEPS), "--resume", "--out_dir", split])
+    add_launches(total, launches)
+    log(f"conv_blur resume at step {half}: targets at the resume point equal the "
+        f"uninterrupted run's {torch.equal(at_resume, at_half)} (and the first half's "
+        f"{torch.equal(at_resume, first._train_arrays['colors'])}), at step {state.step} "
+        f"{torch.equal(resumed._train_arrays['colors'], colors)}")
+    require(torch.equal(at_resume, at_half) and torch.equal(at_resume,
+                                                            first._train_arrays["colors"]),
+            "conv_blur resume: targets at the resume point differ")
+    require(state.step == GARF_BLUR_STEPS
+            and torch.equal(resumed._train_arrays["colors"], colors),
+            "conv_blur resume: targets differ from the uninterrupted run's")
+
+    rates = {}
+    for tag, argv in (("plain", base), ("conv_blur", blurred), ("conv_blur", blurred),
+                      ("plain", base)):
+        out = os.path.join(workdir, f"gaborf_rate_{len(rates.get(tag, []))}_{tag}")
+        _, _, _, launches, _, _ = garf_blur_fit(
+            argv + ["--max_steps", str(GARF_RATE_STEPS), "--out_dir", out], strip_loggers=True)
+        add_launches(total, launches)
+        rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+        rows = [r for r in rows if "wall_s" in r]
+        # the window from the first log row (step 10) to the last (step 60)
+        rate = 1024 * (GARF_RATE_STEPS - 10) / (rows[-1]["wall_s"] - rows[0]["wall_s"])
+        rates.setdefault(tag, []).append(rate)
+    ratio = max(rates["conv_blur"]) / max(rates["plain"])
+    log(f"GaborF train rays/s at 1024 rays, steps 10-60 (A, B, B, A): plain {rates['plain']}, "
+        f"--conv_blur {rates['conv_blur']}: ratio of the best {ratio:.4f} (must be >= "
+        f"{1 - RATE_SLACK})")
+    require(ratio >= 1 - RATE_SLACK, f"--conv_blur costs more than 2 % of the rays/s: {ratio}")
+    return total, {"gaborf_plain": max(rates["plain"]),
+                   "gaborf_conv_blur": max(rates["conv_blur"])}
+
+
+def siren_cfg(bf16: bool):
+    from nerf_experiments_tpu_torch.experiments import run_nerf_siren
+
+    args = run_nerf_siren.parse_args(["--image_size", str(IMAGE_SIZE)]
+                                     + (["--bf16"] if bf16 else []))
+    return run_nerf_siren.build_config(args)[0]
+
+
+def phase_siren(dev, workdir):
+    """run_nerf_siren at its defaults (hidden 256, 64 + 128 samples, omega
+    30, batch 1024), fp32 and bf16: one plain step against the same step
+    with K1 / K3 replaced by their plain versions (the fine bins pinned to
+    the kernel step's; unpinned logged), its K1 / K3 launches; the entry
+    point at 100^2 for 100 steps (validation PSNR on fixed rays rises) with
+    its launches counted, a short bf16 run; train rays/s at 1024 and 4096."""
+    import copy
+    import functools
+
+    from nerf_experiments_tpu_torch.data import sampler
+    from nerf_experiments_tpu_torch.experiments import run_nerf_siren
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    scalars = (0.0, 0.0, 0.0)
+    times = {}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "fp32"
+        cfg = siren_cfg(bf16)
+        params = barf_sys.init(torch.Generator().manual_seed(70), cfg).to(dev)
+        batch = train_batch(SIREN_RAYS, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(71), dev)
+        step = barf_sys.make_train_step(cfg)
+        init_state = functools.partial(barf_sys.init_state, cfg)
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        record = []
+        with fine_bins(record=record):
+            step(init_state(copy.deepcopy(params)), batch,
+                 torch.Generator(device=dev).manual_seed(72), *scalars)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        log(f"SIREN step {tag}: launches {launches}")
+        require(launches.get("render_fwd") == 2 and launches.get("render_bwd") == 2,
+                f"SIREN step {tag}: K1 / K3 not on both stages: {launches}")
+        pinned = record[0]
+        step_pair(f"SIREN step {tag} at {SIREN_RAYS} rays, K1 / K3 against their plain "
+                  f"versions (fine bins pinned)", init_state, params, batch,
+                  (under_plain_kernels(with_fine_bins(step, pinned=pinned)),
+                   with_fine_bins(step, pinned=pinned)), scalars, bf16, dev, 72)
+        step_pair(f"SIREN step {tag}, fine bins resampled from each step's own weights",
+                  init_state, params, batch, (under_plain_kernels(step), step), scalars, bf16,
+                  dev, 72, gate=False)
+        for n in (SIREN_RAYS, 4096):
+            b = train_batch(n, cfg.n_training_images,
+                            torch.Generator(device=dev).manual_seed(73), dev)
+            state = init_state(copy.deepcopy(params))
+            def fn(st, bb, g, step=step):
+                return step(st, bb, g, *scalars)
+
+            time_steps(fn, state, b, dev, 1, 500)
+            ms = time_steps(fn, state, b, dev, 5, 501)
+            times[f"siren {tag} {n}"] = n * 5 / ms * 1e3
+            log(f"SIREN train rays/s {tag} at {n} rays: {times[f'siren {tag} {n}']:.0f} "
+                f"({ms / 5:.2f} ms a step)")
+            del state, b
+            torch.cuda.empty_cache()
+
+    total = {}
+    for bf16, steps in ((False, 100), (True, 20)):
+        tag = "bf16" if bf16 else "fp32"
+        out = os.path.join(workdir, f"siren_{tag}")
+        args = run_nerf_siren.parse_args(
+            ["--image_size", str(IMAGE_SIZE), "--max_steps", str(steps), "--device", str(dev),
+             "--out_dir", out] + (["--bf16"] if bf16 else []))
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        exp = run_nerf_siren.build(args)
+        store = exp.train_store if exp.trainer.val_store is None else exp.trainer.val_store
+        idx = torch.randint(0, store.n_rays, (4096,), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(74))
+        val_batch = sampler.gather_batch_arrays(store.arrays(), store.pixel_width, idx)
+        with torch.no_grad():
+            before = float(exp.trainer.val_fn(exp.state.params, val_batch)["psnr"])
+        t = time.perf_counter()
+        state = exp.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        with torch.no_grad():
+            after = float(exp.trainer.val_fn(state.params, val_batch)["psnr"])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        add_launches(total, launches)
+        log(f"run_nerf_siren {tag} at {IMAGE_SIZE}^2: {state.step} steps in {wall:.2f} s, "
+            f"PSNR on 4096 fixed rays {before:.3f} -> {after:.3f}, launches {launches}")
+        require(state.step == steps and math.isfinite(after), f"run_nerf_siren {tag} failed")
+        require(launches["render_fwd"] >= 2 * steps and launches["render_bwd"] == 2 * steps,
+                f"run_nerf_siren {tag}: K1 / K3 not on every step")
+        if not bf16:
+            require(after > before, f"run_nerf_siren: PSNR did not rise ({before} -> {after})")
+    return total, times
+
+
+def phase_2d_reconstruction(dev, workdir):
+    """run_2d_reconstruction at its defaults (64^2, hidden 256, 10 levels,
+    batch 4096, 2000 steps): validation PSNR above the JAX package's 15 dB
+    gate (`tests/test_end_to_end.py`), and its steps/s."""
+    from nerf_experiments_tpu_torch.experiments import run_2d_reconstruction
+
+    t = time.perf_counter()
+    _, _, result = run_2d_reconstruction.main(
+        ["--device", str(dev), "--out_dir", os.path.join(workdir, "2d"), "--save_image"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    log(f"run_2d_reconstruction defaults: {result}, {wall:.2f} s for 2000 steps "
+        f"({2000 / wall:.1f} steps/s, data and image included)")
+    require(result["val_psnr"] > 15.0, f"2-D reconstruction val PSNR {result['val_psnr']}")
+    return {"2d_steps_per_s": 2000 / wall, "2d_val_psnr": result["val_psnr"]}
+
+
+def phase_scene_generator(dev, workdir):
+    """`synthetic_fast.validate` on the card; one 400^2 view at 128 samples
+    (CUDA events) against the same view through the numpy marcher (host
+    clock);
+    a 12-view 100^2 `generate_dataset` (20 views with val and test) whose
+    transforms are byte for byte, and images within 2/255 on 0.97 of the
+    pixels, those of the numpy path's scene (`common.resolve_scene`)."""
+    import numpy as np
+    from PIL import Image
+
+    from nerf_experiments_tpu_torch.data import synthetic, synthetic_fast
+    from nerf_experiments_tpu_torch.experiments import common
+
+    frac, err = synthetic_fast.validate(device=dev)
+    log(f"scene generator validate on the card: {frac:.4f} of the pixels within 1/255, mean "
+        f"error {err:.3e} (gate >= {synthetic_fast.GATE_FRAC_SAME}, < "
+        f"{synthetic_fast.GATE_MEAN_ERR})")
+    c2w = synthetic.look_at_c2w(np.array([2.5, 2.0, 2.2]), np.zeros(3),
+                                np.array([0.0, 0.0, 1.0]))
+    c2w_t = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    view_ms = cuda_time_ms(lambda: synthetic_fast.render_view(c2w_t, 400, 400, n_samples=128),
+                           iters=3, warmup=1)
+    t = time.perf_counter()
+    synthetic.render_image(c2w, 400, 400, n_samples=128)
+    numpy_s = time.perf_counter() - t
+    ref = common.resolve_scene("synthetic", IMAGE_SIZE)
+    out = os.path.join(workdir, "fast_scene")
+    t = time.perf_counter()
+    synthetic_fast.generate_dataset(out, device=dev, image_size=IMAGE_SIZE)
+    gen_s = time.perf_counter() - t
+    worst = 1.0
+    for split in ("train", "val", "test"):
+        ta = open(os.path.join(ref, f"transforms_{split}.json")).read()
+        require(ta == open(os.path.join(out, f"transforms_{split}.json")).read(),
+                f"scene generator: {split} poses differ from the numpy path's")
+        for name in os.listdir(os.path.join(ref, split)):
+            ia, ib = (np.asarray(Image.open(os.path.join(d, split, name)), np.float32) / 255.0
+                      for d in (ref, out))
+            worst = min(worst, float((np.abs(ia - ib).max(axis=-1) <= 2.0 / 255.0).mean()))
+    log(f"scene generator: one 400^2 view at 128 samples {view_ms:.2f} ms on the card, "
+        f"{numpy_s:.2f} s through the numpy marcher on the host; "
+        f"generate_dataset 12 + 4 + 4 views at {IMAGE_SIZE}^2 (96 samples, validate "
+        f"included) {gen_s:.2f} s; poses byte for byte the numpy path's, worst image "
+        f"{worst:.4f} of the pixels within 2/255")
+    require(worst >= 0.97, f"scene generator images differ from the numpy path's: {worst}")
+    return {"view_400_ms": view_ms, "numpy_view_400_s": numpy_s, "generate_100_s": gen_s}
+
+
+def phase_tools(dev, workdir):
+    """`profiling.trace` around two SIREN steps writes a Chrome trace that
+    names the K1 / K3 launches; `StepTimer`'s rays/s over them;
+    `native.available()`."""
+    import copy
+
+    from nerf_experiments_tpu_torch.data import native
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from nerf_experiments_tpu_torch.utils import profiling
+
+    cfg = siren_cfg(False)
+    params = barf_sys.init(torch.Generator().manual_seed(80), cfg).to(dev)
+    batch = train_batch(SIREN_RAYS, cfg.n_training_images,
+                        torch.Generator(device=dev).manual_seed(81), dev)
+    state = barf_sys.init_state(cfg, copy.deepcopy(params))
+    step = barf_sys.make_train_step(cfg)
+    step(state, batch, torch.Generator(device=dev).manual_seed(82), 0.0, 0.0, 0.0)
+    trace_dir = os.path.join(workdir, "trace")
+    timer = profiling.StepTimer(dev, warmup=1)
+    with profiling.trace(trace_dir):
+        for i in range(2):
+            with profiling.annotate(f"siren_step_{i}"):
+                step(state, batch, torch.Generator(device=dev).manual_seed(83 + i), 0.0, 0.0,
+                     0.0)
+            timer.tick(rays=SIREN_RAYS)
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = sum("render_fwd_kernel" in n for n in names)
+    k3 = sum("render_bwd_kernel" in n for n in names)
+    annotated = sum(e.get("name", "").startswith("siren_step_") for e in events)
+    log(f"profiling.trace around 2 SIREN steps: {len(names)} kernel events, render_fwd_kernel "
+        f"x{k1}, render_bwd_kernel x{k3}, {annotated} annotated ranges; StepTimer "
+        f"{timer.rays_per_sec():.0f} rays/s over the traced step")
+    require(k1 == 4 and k3 == 4, f"the trace does not name the K1 / K3 launches: {k1}, {k3}")
+    log(f"native.available() = {native.available()} ({native.library_path()})")
+    return {"native": native.available()}
+
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -3168,6 +3560,16 @@ def main() -> int:
         add_launches(slice_launches, run(27, phase_block_coarse, dev, workdir))
         add_launches(slice_launches, run(28, phase_garf_block_coarse, dev, workdir))
         run(29, phase_slice_timing, dev)
+        modules = run(30, phase_blur, dev)
+        new_launches, rates = run(31, phase_gaborf_blur, dev, workdir)
+        modules.update(rates)
+        siren_launches, rates = run(32, phase_siren, dev, workdir)
+        add_launches(new_launches, siren_launches)
+        modules.update(rates)
+        modules.update(run(33, phase_2d_reconstruction, dev, workdir))
+        modules.update(run(34, phase_scene_generator, dev, workdir))
+        modules.update(run(35, phase_tools, dev, workdir))
+        log(json.dumps({"modules": modules}))
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
     # (inputs rotated past the L2), K7 and K8 (table in L2), CUDA events per
@@ -3181,7 +3583,8 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:55",
          "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
          + garf_launches["render_fwd"] + ingp_launches["render_fwd"]
-         + mip_launches["render_fwd"] + slice_launches["render_fwd"],
+         + mip_launches["render_fwd"] + slice_launches["render_fwd"]
+         + new_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
@@ -3196,7 +3599,8 @@ def main() -> int:
          "source": "nerf_experiments_tpu_torch/csrc/render.cu",
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
          "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"]
-         + mip_launches["render_bwd"] + slice_launches["render_bwd"],
+         + mip_launches["render_bwd"] + slice_launches["render_bwd"]
+         + new_launches["render_bwd"],
          "max_abs_err": k3_err,
          "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
         {"name": "flagship_train", "route": "cuda",
@@ -3208,13 +3612,15 @@ def main() -> int:
         {"name": "garf_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/garf_train.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:82",
-         "launches": garf_launches["garf_train"] + slice_launches["garf_train"],
+         "launches": garf_launches["garf_train"] + slice_launches["garf_train"]
+         + new_launches["garf_train"],
          "max_abs_err": k5_err,
          "ms": garf_times["K5_gauss_fp32"][0], "plain_ms": garf_times["K5_gauss_fp32"][1]},
         {"name": "garf_render", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/garf_render.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:376",
-         "launches": garf_launches["garf_render"] + slice_launches["garf_render"],
+         "launches": garf_launches["garf_render"] + slice_launches["garf_render"]
+         + new_launches["garf_render"],
          "max_abs_err": k6_err,
          "ms": garf_times["K6_gauss_fp32"][0], "plain_ms": garf_times["K6_gauss_fp32"][1]},
         {"name": "hash_encode_fwd", "route": "cuda",

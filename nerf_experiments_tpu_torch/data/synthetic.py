@@ -16,7 +16,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 
@@ -118,8 +118,12 @@ def generate_dataset(
     seed: int = 0,
     radius: float = 4.0,
     n_samples: int = 96,
+    render_fn: Callable = render_image,
 ) -> str:
-    """Write a Blender-format dataset under out_dir. Returns out_dir."""
+    """Write a Blender-format dataset under out_dir. Returns out_dir.
+    `render_fn` renders each view (`render_image`'s signature); the poses and
+    the file layout do not depend on it (`data/synthetic_fast.py` passes the
+    on-card renderer)."""
     try:
         from PIL import Image
     except ImportError as e:  # pragma: no cover
@@ -142,7 +146,7 @@ def generate_dataset(
                 [math.cos(az) * math.cos(el), math.sin(az) * math.cos(el), math.sin(el)]
             )
             c2w = look_at_c2w(pos, np.zeros(3), np.array([0.0, 0.0, 1.0]))
-            rgba = render_image(c2w, image_size, image_size, n_samples=n_samples)
+            rgba = render_fn(c2w, image_size, image_size, n_samples=n_samples)
             img = Image.fromarray((np.clip(rgba, 0, 1) * 255).astype(np.uint8), "RGBA")
             name = f"r_{i}"
             img.save(os.path.join(img_dir, f"{name}.png"))

@@ -15,10 +15,12 @@ the Kabsch gauge, the ray-density and image loggers, checkpoints, the
 trainer); `main` trains, and with --resume continues from the latest
 checkpoint in <out_dir>/ckpt. With --fused_kernel each step's radiance
 gradients come from the GARF train kernel, and on a CUDA device the image
-logger renders through the GARF render kernel.
+logger renders through the GARF render kernel. With --conv_blur the training
+targets are the raw train images blurred with a sigma that decays at every
+scheduler period (`ops/image_blur.py:ConvBlurTargets`).
 
     python -m nerf_experiments_tpu_torch.experiments.garf_main --fused_kernel \\
-        --activation {gauss,gabor,sarf} [--bf16] [--resume]
+        --activation {gauss,gabor,sarf} [--bf16] [--resume] [--conv_blur]
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from nerf_experiments_tpu_torch.cameras import calibration
 from nerf_experiments_tpu_torch.data import blender, sampler
 from nerf_experiments_tpu_torch.experiments import common
 from nerf_experiments_tpu_torch.models import garf
+from nerf_experiments_tpu_torch.ops import image_blur
 from nerf_experiments_tpu_torch.systems import garf_system
 from nerf_experiments_tpu_torch.training import loggers
 from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
@@ -75,7 +78,8 @@ def parse_args(argv=None):
     p.add_argument("--near", type=float, default=2.0)
     p.add_argument("--far", type=float, default=7.0)
     p.add_argument("--conv_blur", action="store_true", default=False,
-                   help="decaying blur of the training targets (gaborf); not ported yet")
+                   help="decaying blur of the training targets (gaborf): the raw train "
+                        "images re-blurred at every scheduler period (ops/image_blur.py)")
     p.add_argument("--blur_kernel_size", type=int, default=81)
     p.add_argument("--blur_relative_sigma_start", type=float, default=0.015)
     p.add_argument("--blur_relative_sigma_decay", type=float, default=0.99)
@@ -111,6 +115,13 @@ def parse_args(argv=None):
     common.add_common_args(p)
     p.set_defaults(seed=1337, max_epochs=None)
     return p.parse_args(argv)
+
+
+def scheduler_period(args):
+    """The LR scheduler's period in epochs, None for every step."""
+    if args.scheduler_period_epoch_fraction is None and args.activation == "gabor":
+        return 0.02  # gaborf/main.py scheduler period
+    return args.scheduler_period_epoch_fraction
 
 
 def build_config(args, dm: blender.DataModule, steps_per_epoch: int):
@@ -149,9 +160,7 @@ def build_config(args, dm: blender.DataModule, steps_per_epoch: int):
             activation_learning_rate_factor=act_factor, weight_decay=weight_decay,
             compute_dtype=compute_dtype)
 
-    period = args.scheduler_period_epoch_fraction
-    if period is None and args.activation == "gabor":
-        period = 0.02  # gaborf/main.py scheduler period
+    period = scheduler_period(args)
     freeze = ((args.act_anneal_start_epoch, args.act_anneal_end_epoch)
               if args.camera_freeze_during_anneal
               else (args.camera_freeze_start_epoch, args.camera_freeze_end_epoch))
@@ -181,9 +190,6 @@ def build(args, device=None):
     if args.mesh:
         raise NotImplementedError("--mesh (multi-device training) is not ported yet "
                                   "(ROADMAP A13)")
-    if args.conv_blur:
-        raise NotImplementedError("--conv_blur is not ported yet: it needs ops/image_blur.py "
-                                  "and Trainer.swap_train_colors (ROADMAP A11)")
     if args.train_coarse_block > 1 and not args.fused_kernel:
         raise ValueError("--train_coarse_block requires --fused_kernel")
     device = torch.device(device or args.device)
@@ -272,6 +278,17 @@ def build(args, device=None):
                                                               dm.dataset_train),
         lambda trainer, state, step, ef: img_logger.maybe_log(ef, step, state.params, dm),
     ]
+    conv_blur = None
+    if args.conv_blur:
+        raw_images = dm.dataset_train.images[:, :, :, -1]  # the sigma-0 slot
+        conv_blur = image_blur.ConvBlurTargets(
+            torch.as_tensor(np.ascontiguousarray(raw_images), device=device),
+            kernel_size=args.blur_kernel_size,
+            relative_sigma_start=args.blur_relative_sigma_start,
+            relative_sigma_decay=args.blur_relative_sigma_decay,
+            epoch_fraction_period=scheduler_period(args) or 0.02,
+            n_sigma_slots=dm.dataset_train.images.shape[3])
+        callbacks.append(conv_blur)
     ckpt_mgr = None
     if args.checkpoint_every_n_epochs or args.resume:
         ckpt_mgr = CheckpointManager(os.path.join(args.out_dir, "ckpt"))
@@ -284,6 +301,12 @@ def build(args, device=None):
     if args.resume and ckpt_mgr.latest_step() is not None:
         state = ckpt_mgr.restore(state)
         print(f"resumed from step {ckpt_mgr.latest_step()}")
+    if conv_blur is not None:
+        # the trainer fires callbacks with the epoch fraction of the step just
+        # taken, so after `state.step` steps an uninterrupted run's ladder is at
+        # ef(step - 1); the targets start blurred there
+        conv_blur.sync_to(trainer.epoch_fraction(max(0, int(state.step) - 1)))
+        trainer.swap_train_colors(conv_blur.flat_colors())
     return cfg, state, trainer
 
 

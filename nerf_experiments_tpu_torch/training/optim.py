@@ -26,7 +26,8 @@ What matches optax, step for step:
     applies on guarded steps too, and not in a freeze window (lr 0).
 
 `ReduceOnPlateau` is `optax.contrib.reduce_on_plateau`, the plateau scale
-of the 2-D hash-grid fit (`experiments/run_2d_ingp.py`).
+of the 2-D fits (`experiments/run_2d_ingp.py`,
+`experiments/run_2d_reconstruction.py`).
 """
 from __future__ import annotations
 
@@ -189,3 +190,18 @@ class ReduceOnPlateau:
             self.scale = self.scale * np.float32(self.factor)
         self.count = 0
         self.avg_value = torch.zeros_like(self.avg_value)
+
+    def state_dict(self) -> dict:
+        """The whole state machine: a run restored from it takes the same
+        scales as one that never stopped, also within a window."""
+        return {"scale": float(self.scale), "best_value": float(self.best_value),
+                "plateau_count": self.plateau_count, "count": self.count,
+                "avg_value": None if self.avg_value is None else self.avg_value.cpu()}
+
+    def load_state_dict(self, state: dict, device=None) -> None:
+        self.scale = np.float32(state["scale"])
+        self.best_value = np.float32(state["best_value"])
+        self.plateau_count = int(state["plateau_count"])
+        self.count = int(state["count"])
+        avg = state["avg_value"]
+        self.avg_value = None if avg is None else avg.to(device)

@@ -130,6 +130,9 @@ class Trainer:
         self._block = block
         self._base_seed = self._base_seed0 = mix_seed(cfg.seed)
         self._generator = torch.Generator(device=train_store.device)
+        # the per-ray tensors every batch is gathered from (train steps, the
+        # post-mortem's replay); `swap_train_colors` replaces the targets
+        self._train_arrays = train_store.arrays()
 
     def epoch_fraction(self, step: int) -> float:
         return step / self.steps_per_epoch
@@ -147,7 +150,19 @@ class Trainer:
         if block > 1:
             idx = (block * idx[:, None]
                    + torch.arange(block, device=store.device)).reshape(-1)
-        return sampler_lib.gather_batch_arrays(store.arrays(), store.pixel_width, idx)
+        return sampler_lib.gather_batch_arrays(self._train_arrays, store.pixel_width, idx)
+
+    def swap_train_colors(self, colors: torch.Tensor) -> None:
+        """Replace the training targets (R, n_sigmas, 3) of every later batch
+        (`gaborf/dataset.py:383-390`: the conv-blur-with-decay targets); same
+        shape, dtype and device as the store's."""
+        old = self._train_arrays["colors"]
+        if (colors.shape != old.shape or colors.dtype != old.dtype
+                or colors.device != old.device):
+            raise ValueError(
+                f"swap_train_colors: {tuple(colors.shape)} {colors.dtype} on {colors.device} "
+                f"does not match the store's {tuple(old.shape)} {old.dtype} on {old.device}")
+        self._train_arrays = dict(self._train_arrays, colors=colors)
 
     def regen_batch(self, step: int) -> dict:
         """The batch step `step` trained on (under the current seed stream)."""

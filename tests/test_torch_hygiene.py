@@ -55,7 +55,22 @@ def test_port_imports_no_jax():
             "nerf_experiments_tpu_torch.experiments.run_vanilla_as_barf",
             "nerf_experiments_tpu_torch.experiments.run_naive_as_barf",
             "nerf_experiments_tpu_torch.experiments.run_naive_to_vanilla",
-            "nerf_experiments_tpu_torch.experiments.run_sampling_test"} <= set(mods)
+            "nerf_experiments_tpu_torch.experiments.run_sampling_test",
+            "nerf_experiments_tpu_torch.ops.image_blur",
+            "nerf_experiments_tpu_torch.models.siren",
+            "nerf_experiments_tpu_torch.experiments.run_nerf_siren",
+            "nerf_experiments_tpu_torch.models.nerf2d",
+            "nerf_experiments_tpu_torch.experiments.run_2d_reconstruction",
+            "nerf_experiments_tpu_torch.data.synthetic_fast",
+            "nerf_experiments_tpu_torch.data.native",
+            "nerf_experiments_tpu_torch.utils.config",
+            "nerf_experiments_tpu_torch.utils.profiling",
+            "nerf_experiments_tpu_torch.utils.precision",
+            "nerf_experiments_tpu_torch.experiments.sweep",
+            "nerf_experiments_tpu_torch.experiments.studies.bulge",
+            "nerf_experiments_tpu_torch.experiments.studies.rotation_check",
+            "nerf_experiments_tpu_torch.experiments.studies.visualise_pe_mask",
+            "nerf_experiments_tpu_torch.experiments.studies.camera_similarity"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -214,11 +229,9 @@ def test_render_views_refuses_what_is_not_ported(argv, tmp_path):
                            "--image_size", "16", "--out_dir", str(tmp_path)] + argv)
 
 
-# what each entry refuses, and why: multi-device and --conv_blur are not
-# ported; block-coarse training needs the fused step and a coarse stage (the
-# JAX package's asserts)
+# what each entry refuses, and why: multi-device is not ported; block-coarse
+# training needs the fused step and a coarse stage (the JAX package's asserts)
 REFUSALS = {"--mesh": (NotImplementedError, "not ported"),
-            "--conv_blur": (NotImplementedError, "not ported"),
             "--occ_grid_resolution": (ValueError, "requires --fused_kernel"),
             "--train_coarse_block": (ValueError, "requires --fused_kernel|needs a coarse stage")}
 
@@ -238,11 +251,11 @@ def test_training_entry_is_not_ported_yet(argv):
         run_barf.main(argv)
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--conv_blur"],
-                                  ["--train_coarse_block", "4"]])
+@pytest.mark.parametrize("argv", [["--mesh", "4x2"], ["--train_coarse_block", "4"]])
 def test_garf_entry_refuses_what_is_not_ported(argv):
-    """`garf_main.main` trains, block-coarse included; its multi-device and
-    target-blur options refuse as not ported, and block-coarse training
+    """`garf_main.main` trains, block-coarse and the target blur
+    (`--conv_blur`, `tests/test_torch_image_blur.py`) included; its
+    multi-device option refuses as not ported, and block-coarse training
     without the fused step as the JAX package's assert does, before any data
     is generated."""
     from nerf_experiments_tpu_torch.experiments import garf_main
@@ -256,7 +269,8 @@ def test_garf_entry_refuses_what_is_not_ported(argv):
                                    "run_2d_ingp", "run_mip_nerf", "run_bip_barf",
                                    "run_mip_blur_test", "run_vanilla_as_barf",
                                    "run_naive_as_barf", "run_naive_to_vanilla",
-                                   "run_sampling_test"])
+                                   "run_sampling_test", "run_nerf_siren",
+                                   "run_2d_reconstruction"])
 def test_device_defaults_to_cuda(entry):
     """Every entry point runs on the card unless --device says otherwise,
     with no fallback to the CPU when CUDA is missing."""
