@@ -152,7 +152,27 @@ Phases, each raising on failure:
      one 400^2 view at 128 samples, a 12-view 100^2 `generate_dataset` whose
      poses are byte for byte the numpy path's;
  35. `utils/profiling.trace` around two SIREN steps names the K1 / K3
-     launches; `data/native.available()`.
+     launches; `data/native.available()`;
+ 36. the mesh (`parallel/`), two ranks sharing cuda:0 over gloo
+     (`parallel/launch.py:run_ranks`; the ranks load the library phase 1
+     built and fail if they would build it again): two data-parallel fused
+     steps (K4 on each rank's 4096 rays) of the north-star (bf16) and the
+     dense flagship (fp32), and two plain steps (K1 / K3) of the dense
+     flagship on stratified bins, each against the same steps in this
+     process on the same 8192-ray global batch (phase 8's tolerances: loss,
+     update of every parameter; the ranks' parameters bitwise equal);
+     the plain step again on a 1 x 2 model axis (each rank updating half
+     the columns of the 256-wide leaves) against the same reference;
+     `sharded_render` of 8191 rays through K2 against the whole render; the
+     fused north-star step timed on both ranks (two ranks sharing one card:
+     not a scaling figure);
+ 37. one NCCL rank through the entry points: `run_barf.main --mesh auto
+     --fused_kernel` (north-star, 32^2, 24 steps, K4 counted) bitwise equal
+     to the run without --mesh (rows and parameters, under torch's
+     deterministic algorithms), the same run under `torchrun --standalone
+     --nproc_per_node=1`, and the fused north-star step at 8192 rays with
+     and without a one-rank mesh (A, B, B, A) beside its two all-reduces
+     alone (`sync_grads`, `sync_metrics`).
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -3363,6 +3383,339 @@ def phase_tools(dev, workdir):
     return {"native": native.available()}
 
 
+# ---------------------------------------------------------------- phases 36-37: the mesh
+
+MESH_RAYS = 8192  # the global batch of the mesh steps (the north-star preset's)
+MESH_RENDER_RAYS = 8191  # no multiple of two ranks: the padding is exercised
+MESH_STEPS = 2
+MESH_SCALARS = (7.5, 2.5, 0.0)  # alpha_pos, alpha_dir, blur sigma (phase 8's)
+MESH_TIMED_STEPS = 10
+TIMING_KEYS = ("train_rays_per_sec", "wall_s")
+MODEL_AXIS = ", 1 x 2 model axis"  # the plain step on a (data 1, model 2) mesh
+
+
+def mesh_configs():
+    """(name, BarfConfig, fused) of phase 36's steps at full width: the
+    north-star (bf16) and the dense flagship (fp32, 128 samples) through K4
+    on equidistant bins without the offset (the seeds folded with the rank
+    then draw nothing, so the ranks' bins are the single process's), and the
+    dense flagship's plain step (K1 / K3) on stratified bins: the global
+    draws."""
+    import dataclasses
+
+    from nerf_experiments_tpu_torch.experiments import run_barf
+
+    def cfg(flags, **kw):
+        args = run_barf.parse_args(["--image_size", str(IMAGE_SIZE), "--seed", "7"] + flags)
+        return dataclasses.replace(run_barf.build_config(args)[0],
+                                   uniform_sampling_offset_size=0.0, **kw)
+
+    return [("fused northstar bf16", cfg(NORTHSTAR), True),
+            ("fused dense fp32", cfg(["--samples_per_ray", "128"]), True),
+            ("plain dense fp32 stratified",
+             cfg(["--samples_per_ray", "32"], uniform_sampling_strategy="stratified_uniform"),
+             False)]
+
+
+def mesh_inputs(cfg, dev, n_rays: int = MESH_RAYS):
+    """Parameters (the camera perturbed) and the global batch of the mesh
+    steps, the same in every process from their seeds."""
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    params = perturbed_camera(barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev),
+                              dev, 9)
+    batch = train_batch(n_rays, cfg.n_training_images,
+                        torch.Generator(device=dev).manual_seed(10), dev)
+    return params, batch
+
+
+def mesh_state(cfg, fused: bool, dev, mesh=None, n_rays: int = MESH_RAYS):
+    """(state, step, batch): on one process, or data-parallel over `mesh`
+    with this rank's shard of the `n_rays` global batch."""
+    from nerf_experiments_tpu_torch.parallel import mesh as mesh_lib
+    from nerf_experiments_tpu_torch.parallel import shard as shard_lib
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    params, batch = mesh_inputs(cfg, dev, n_rays)
+    state = barf_sys.init_state(cfg, params)
+    if mesh is not None:
+        shard_lib.shard_state(state, mesh)
+        batch = mesh_lib.shard_batch(batch, mesh)
+    return state, barf_sys.make_train_step(cfg, fused=fused, mesh=mesh), batch
+
+
+def mesh_steps(cfg, fused: bool, dev, mesh=None):
+    """MESH_STEPS steps, each from its own generator seed: (losses,
+    parameters before, parameters after, {leaf split over a model axis:
+    (shard shape, full shape)}), on the host."""
+    state, step, batch = mesh_state(cfg, fused, dev, mesh)
+    split = {n: (tuple(s.shard.shape), tuple(p.shape))
+             for n, p in state.params.named_parameters()
+             for s in state.optimizer.model_shards if s.full is p}
+    before = {k: v.cpu().clone() for k, v in state.params.state_dict().items()}
+    losses = []
+    for i in range(MESH_STEPS):
+        state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(20 + i),
+                              *MESH_SCALARS)
+        require(bool(metrics["grads_finite"]), "mesh step: non-finite gradients")
+        losses.append(float(metrics["loss"]))
+    return (losses, before, {k: v.cpu().clone() for k, v in state.params.state_dict().items()},
+            split)
+
+
+def mesh_render(dev, mesh=None):
+    """The dense flagship's serving forward through K2 (`forward(fused=True)`)
+    of MESH_RENDER_RAYS rays, whole or through `sharded_render`."""
+    from nerf_experiments_tpu_torch.parallel import shard as shard_lib
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    cfg = mesh_configs()[1][1]
+    params = barf_sys.init(torch.Generator().manual_seed(31), cfg).to(dev)
+    origs, dirs = random_rays(MESH_RENDER_RAYS, torch.Generator(device=dev).manual_seed(32), dev)
+    pw = torch.full((MESH_RENDER_RAYS, 1), 1e-3, device=dev)
+
+    def fwd(params, o, d, pw):
+        return barf_sys.forward(params, cfg, None, o, d, pw, A_POS, A_DIR, stratified=False,
+                                fused=True)[0]
+
+    render = fwd if mesh is None else shard_lib.sharded_render(fwd, mesh)
+    with torch.no_grad():
+        return render(params, origs, dirs, pw).cpu()
+
+
+def time_mesh_step(step, state, batch, dev, first_seed: int, barrier=None) -> float:
+    """Seconds of MESH_TIMED_STEPS steps (host clock, synchronised; with
+    `barrier`, every rank starts and is timed together), after two warm-up
+    steps."""
+    for i in range(2):
+        state, _ = step(state, batch, torch.Generator(device=dev).manual_seed(first_seed + i),
+                        *MESH_SCALARS)
+    torch.cuda.synchronize()
+    if barrier is not None:
+        barrier()
+    t0 = time.perf_counter()
+    for i in range(MESH_TIMED_STEPS):
+        state, _ = step(state, batch,
+                        torch.Generator(device=dev).manual_seed(first_seed + 2 + i),
+                        *MESH_SCALARS)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mesh_rank(rank: int, world: int, workdir: str, device: str) -> None:
+    """A rank of phase 36, one of two sharing `device` (cuda:0) over gloo
+    (the caller names both). It loads the library its parent built, runs phase 36's
+    steps and render on its shard (and the plain step on a 1 x 2 model axis)
+    with every kernel count set to 0 just before and read just after, times
+    the fused north-star step, and saves its results for the parent."""
+    import torch.distributed as dist
+
+    from nerf_experiments_tpu_torch.ops import cuda_build
+    from nerf_experiments_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    require(cuda_build.build().seconds == 0.0, f"rank {rank} started a second nvcc build")
+    cuda_build.library()
+    mesh = mesh_lib.make_mesh(device=dev)
+    counters = launch_counters()
+    out = {"steps": {}, "launches": {k: 0 for k in counters}}
+
+    def counted(fn, *args):
+        for c in counters.values():
+            c.launches = 0
+        result = fn(*args)
+        torch.cuda.synchronize()
+        add_launches(out["launches"], {k: c.launches for k, c in counters.items()})
+        return result
+
+    for name, cfg, fused in mesh_configs():
+        out["steps"][name] = counted(mesh_steps, cfg, fused, dev, mesh)
+        torch.cuda.empty_cache()
+    # the plain step again on a 1 x 2 (data x model) mesh: each rank updates
+    # half the columns of the leaves 256 wide
+    out["steps"][name + MODEL_AXIS] = counted(mesh_steps, cfg, fused, dev,
+                                              mesh_lib.make_mesh(1, 2, device=dev))
+    out["render"] = counted(mesh_render, dev, mesh)
+    state, step, batch = mesh_state(slice_config("north_star_S32 bf16"), True, dev, mesh)
+    out["timed_s"] = time_mesh_step(step, state, batch, dev, 40, barrier=dist.barrier)
+    dist.barrier()
+    out["params"] = {k: v.cpu() for k, v in state.params.state_dict().items()}
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def phase_mesh_two_ranks(dev, workdir):
+    """Two ranks on cuda:0 over gloo (`parallel/launch.py:run_ranks`): the
+    data-parallel fused steps (K4 on each rank's 4096 rays) and the plain
+    step, and the plain step on a 1 x 2 model axis, against the single
+    process on the same global batch; the sharded render through K2 against
+    the whole one; and the timed fused step."""
+    from nerf_experiments_tpu_torch.parallel import launch
+
+    ref = {name: mesh_steps(cfg, fused, dev) for name, cfg, fused in mesh_configs()}
+    ref_render = mesh_render(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mdir = os.path.join(workdir, "mesh_two_ranks")
+    os.makedirs(mdir)
+    t = time.perf_counter()
+    launch.run_ranks(mesh_rank, 2, (mdir, str(dev)), init_file=os.path.join(mdir, "store"),
+                     backend="gloo", timeout_s=600.0, group_timeout_s=300.0)
+    log(f"two gloo ranks on cuda:0 ran in {time.perf_counter() - t:.1f} s")
+    outs = [torch.load(os.path.join(mdir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    configs = {name: cfg for name, cfg, _ in mesh_configs()}
+    for name in outs[0]["steps"]:
+        cfg = configs[name.replace(MODEL_AXIS, "")]
+        bf16 = cfg.radiance.compute_dtype is not None
+        ref_losses, before, ref_after, _ = ref[name.replace(MODEL_AXIS, "")]
+        for rank, out in enumerate(outs):
+            losses, rank_before, after, _ = out["steps"][name]
+            require(all(torch.equal(before[k], rank_before[k]) for k in before),
+                    f"{name}: rank {rank} started from other parameters")
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            upd = {k: rel_norm(after[k] - before[k], ref_after[k] - before[k]) for k in before
+                   if float((ref_after[k] - before[k]).norm()) > 0}
+            worst = max(upd, key=upd.get)
+            diff = max(max_err(after[k], ref_after[k]) for k in before)
+            log(f"mesh {name}, rank {rank} of 2 (gloo, cuda:0) against one process, "
+                f"{MESH_STEPS} steps at {MESH_RAYS} global rays: losses {losses} reference "
+                f"{ref_losses}, rel err {loss_err:.3e} (tol {TOL_STEP_LOSS[bf16]}); update rel "
+                f"norm err worst {worst} {upd[worst]:.3e} over {len(upd)} tensors (tol "
+                f"{TOL_STEP_UPDATE[bf16]}); max abs parameter difference {diff:.3e}")
+            require(loss_err <= TOL_STEP_LOSS[bf16], f"mesh {name}: loss err {loss_err}")
+            for k, v in upd.items():
+                require(v <= TOL_STEP_UPDATE[bf16], f"mesh {name}: update of {k} err {v}")
+        require(all(torch.equal(outs[0]["steps"][name][2][k], outs[1]["steps"][name][2][k])
+                    for k in ref_after), f"mesh {name}: the ranks' parameters differ")
+    for rank, out in enumerate(outs):
+        err = max_err(out["render"], ref_render)
+        log(f"mesh sharded_render of {MESH_RENDER_RAYS} rays through K2, rank {rank}: shape "
+            f"{tuple(out['render'].shape)}, max abs err {err:.3e} against the whole render "
+            f"(tol {TOL_FP32}), bitwise {torch.equal(out['render'], ref_render)}")
+        require(out["render"].shape == ref_render.shape and err <= TOL_FP32,
+                f"mesh sharded_render rank {rank}: err {err}")
+        split = next(v[3] for k, v in out["steps"].items() if k.endswith(MODEL_AXIS))
+        log(f"mesh 1 x 2 model axis, rank {rank}: split leaves (shard, full) {split}")
+        require(len(split) >= 4 and all(a[:-1] == b[:-1] and 2 * a[-1] == b[-1]
+                                        for a, b in split.values()),
+                "the model axis did not split the 256-wide leaves in half")
+    require(all(torch.equal(outs[0]["params"][k], outs[1]["params"][k])
+                for k in outs[0]["params"]), "mesh timing: the ranks' parameters differ")
+    launches = add_launches(dict(outs[0]["launches"]), outs[1]["launches"])
+    log(f"mesh phase 36 launches, both ranks: {launches}")
+    require(outs[0]["launches"]["flagship_train"] == 2 * MESH_STEPS
+            and outs[1]["launches"]["flagship_train"] == 2 * MESH_STEPS,
+            "mesh: K4 not launched on every rank's shard at every fused step")
+    require(min(o["launches"]["flagship_render"] for o in outs) >= 1,
+            "mesh: K2 not launched in the sharded render")
+    require(min(o["launches"]["render_bwd"] for o in outs) >= MESH_STEPS,
+            "mesh: K3 not launched in the plain step")
+    seconds = max(o["timed_s"] for o in outs)
+    rate = MESH_RAYS * MESH_TIMED_STEPS / seconds
+    log(f"time the fused north-star bf16 step, two ranks sharing one card over gloo, "
+        f"{MESH_RAYS} global rays: {1e3 * seconds / MESH_TIMED_STEPS:.2f} ms a step, "
+        f"{rate:.0f} rays/s (not a scaling figure)")
+    return launches, {"mesh_two_ranks_gloo_one_card_rays_per_s": rate}
+
+
+def phase_mesh_one_rank(dev, workdir):
+    """One NCCL rank through the entry points: `run_barf.main --mesh auto
+    --fused_kernel` against the same run without --mesh (rows and
+    parameters bitwise, under torch's deterministic algorithms), the same
+    run under `torchrun`, and the fused north-star step with and without a
+    one-rank mesh, timed in turns, beside the collectives alone."""
+    import torch.distributed as dist
+
+    from nerf_experiments_tpu_torch.experiments import run_barf
+    from nerf_experiments_tpu_torch.parallel import mesh as mesh_lib
+    from nerf_experiments_tpu_torch.parallel import shard as shard_lib
+
+    steps = 24
+    base = ["--image_size", "32", "--batch_size", "1024", "--max_steps", str(steps),
+            "--log_every_n_steps", "4", "--image_log_period_epochs", "0.5",
+            "--fused_kernel", "--device", str(dev)] + NORTHSTAR
+
+    def rows(out):
+        return [{k: v for k, v in json.loads(line).items() if k not in TIMING_KEYS}
+                for line in open(os.path.join(out, "metrics.jsonl"))]
+
+    runs, launches = {}, {}
+    with deterministic():
+        for name, extra in (("no mesh", []), ("mesh auto", ["--mesh", "auto"])):
+            out = os.path.join(workdir, f"mesh_entry_{name.replace(' ', '_')}")
+            state, launches[name] = counted_run(run_barf.main, base + extra + ["--out_dir", out])
+            runs[name] = (rows(out), {k: v.cpu() for k, v in state.params.state_dict().items()})
+            require(not dist.is_initialized(), f"{name}: a process group outlived the run")
+    (rows_a, params_a), (rows_b, params_b) = runs["no mesh"], runs["mesh auto"]
+    losses = [r["loss"] for r in rows_b if "loss" in r]
+    same = rows_a == rows_b and all(torch.equal(params_a[k], params_b[k]) for k in params_a)
+    log(f"run_barf --mesh auto (one NCCL rank) against no mesh, {steps} steps at 32^2: "
+        f"{len(rows_b)} rows, loss {losses[0]:.6f} -> {losses[-1]:.6f}, rows and parameters "
+        f"bitwise equal {same}; launches {launches['mesh auto']}")
+    require(same, "a one-rank mesh is not bitwise the run without one")
+    require(launches["mesh auto"]["flagship_train"] == steps,
+            "run_barf --mesh auto: K4 not on every step")
+    require(launches["mesh auto"]["flagship_render"] >= 1, "run_barf --mesh auto: no K2 image")
+
+    out = os.path.join(workdir, "mesh_torchrun")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+         "-m", "nerf_experiments_tpu_torch.experiments.run_barf", "--mesh", "auto"] + base
+        + ["--out_dir", out], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"torchrun run_barf failed:\n{proc.stderr[-4000:]}")
+    rows_c = rows(out)
+    losses_c = [r["loss"] for r in rows_c if "loss" in r]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses_c, losses))
+    log(f"torchrun --standalone --nproc_per_node=1 run_barf --mesh auto: {len(rows_c)} rows in "
+        f"{time.perf_counter() - t:.1f} s, loss {losses_c[0]:.6f} -> {losses_c[-1]:.6f}, "
+        f"largest relative loss difference from the in-process run {worst:.3e} (torch's "
+        f"default, non-deterministic algorithms)")
+    require(len(losses_c) == len(losses) and all(math.isfinite(v) for v in losses_c),
+            "torchrun run_barf: loss rows")
+    require(os.path.exists(os.path.join(out, "ckpt", f"ckpt_{steps}.pt")),
+            "torchrun run_barf: no final checkpoint")
+
+    # the fused north-star step at 8192 rays, without a mesh (A) and on a
+    # one-rank NCCL mesh (B), in turns A, B, B, A; then the collectives alone
+    cfg = slice_config("north_star_S32 bf16")
+    mesh = mesh_lib.make_mesh(device=dev)
+    try:
+        seconds = {"A": [], "B": []}
+        for label in "ABBA":
+            state, step, batch = mesh_state(cfg, True, dev, mesh if label == "B" else None)
+            seconds[label].append(time_mesh_step(step, state, batch, dev, 60))
+            del state, step, batch
+        state, _, _ = mesh_state(cfg, True, dev, mesh)
+        params = shard_lib.full_params(state.optimizer)
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        metrics = {"loss": torch.ones((), device=dev), "loss_fine": torch.ones((), device=dev),
+                   "loss_coarse": torch.ones((), device=dev), "psnr": torch.ones((), device=dev)}
+        sync_ms = cuda_time_ms(lambda: (shard_lib.sync_grads(params, mesh),
+                                        shard_lib.sync_metrics(dict(metrics), mesh)),
+                               iters=50, warmup=5)
+        n_grad = sum(p.numel() for p in params)
+    finally:
+        mesh.close()
+    rates = {k: MESH_RAYS * MESH_TIMED_STEPS / (sum(v) / len(v)) for k, v in seconds.items()}
+    log(f"time the fused north-star bf16 step at {MESH_RAYS} rays, A, B, B, A "
+        f"({MESH_TIMED_STEPS} steps each): no mesh {rates['A']:.0f} rays/s "
+        f"({[round(1e3 * s / MESH_TIMED_STEPS, 3) for s in seconds['A']]} ms a step), "
+        f"one-rank NCCL mesh {rates['B']:.0f} rays/s "
+        f"({[round(1e3 * s / MESH_TIMED_STEPS, 3) for s in seconds['B']]}): ratio "
+        f"{rates['B'] / rates['A']:.4f}; `sync_grads` + `sync_metrics` alone (one all-reduce "
+        f"of {n_grad} "
+        f"gradients, {4 * n_grad / 2**20:.2f} MiB, and one of the metrics) {sync_ms:.4f} ms")
+    total = add_launches(dict(launches["mesh auto"]), {})
+    return total, {"mesh_one_rank_nccl_rays_per_s": rates["B"],
+                   "mesh_none_rays_per_s": rates["A"], "mesh_sync_ms": sync_ms}
+
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -3569,6 +3922,11 @@ def main() -> int:
         modules.update(run(33, phase_2d_reconstruction, dev, workdir))
         modules.update(run(34, phase_scene_generator, dev, workdir))
         modules.update(run(35, phase_tools, dev, workdir))
+        mesh_launches, rates = run(36, phase_mesh_two_ranks, dev, workdir)
+        modules.update(rates)
+        entry_launches, rates = run(37, phase_mesh_one_rank, dev, workdir)
+        add_launches(mesh_launches, entry_launches)
+        modules.update(rates)
         log(json.dumps({"modules": modules}))
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
@@ -3584,7 +3942,7 @@ def main() -> int:
          "launches": launches["northstar"]["render_fwd"] + train_launches["render_fwd"]
          + garf_launches["render_fwd"] + ingp_launches["render_fwd"]
          + mip_launches["render_fwd"] + slice_launches["render_fwd"]
-         + new_launches["render_fwd"],
+         + new_launches["render_fwd"] + mesh_launches["render_fwd"],
          "max_abs_err": k1_err,
          "ms": times["K1_S64"][0], "plain_ms": times["K1_S64"][1]},
         {"name": "flagship_render", "route": "cuda",
@@ -3592,7 +3950,7 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:415",
          "launches": launches["dense"]["flagship_render"]
          + launches["northstar"]["flagship_render"] + train_launches["flagship_render"]
-         + slice_launches["flagship_render"],
+         + slice_launches["flagship_render"] + mesh_launches["flagship_render"],
          "max_abs_err": k2_err,
          "ms": times["K2_S128_fp32"][0], "plain_ms": times["K2_S128_fp32"][1]},
         {"name": "render_bwd", "route": "cuda",
@@ -3600,13 +3958,14 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/render_pallas.py:83",
          "launches": train_launches["render_bwd"] + ingp_launches["render_bwd"]
          + mip_launches["render_bwd"] + slice_launches["render_bwd"]
-         + new_launches["render_bwd"],
+         + new_launches["render_bwd"] + mesh_launches["render_bwd"],
          "max_abs_err": k3_err,
          "ms": train_times["K3_S64"][0], "plain_ms": train_times["K3_S64"][1]},
         {"name": "flagship_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/flagship_train.cu",
          "replaces": "nerf_experiments_tpu/ops/train_megakernel.py:152",
-         "launches": train_launches["flagship_train"] + slice_launches["flagship_train"],
+         "launches": train_launches["flagship_train"] + slice_launches["flagship_train"]
+         + mesh_launches["flagship_train"],
          "max_abs_err": k4_err,
          "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1]},
         {"name": "garf_train", "route": "cuda",

@@ -17,7 +17,9 @@ checkpoint in <out_dir>/ckpt. With --fused_kernel each step's radiance
 gradients come from the GARF train kernel, and on a CUDA device the image
 logger renders through the GARF render kernel. With --conv_blur the training
 targets are the raw train images blurred with a sigma that decays at every
-scheduler period (`ops/image_blur.py:ConvBlurTargets`).
+scheduler period (`ops/image_blur.py:ConvBlurTargets`). With --mesh the
+step is the plain one, data-parallel over the mesh's ranks (the JAX package
+does not run the GARF kernel under a mesh).
 
     python -m nerf_experiments_tpu_torch.experiments.garf_main --fused_kernel \\
         --activation {gauss,gabor,sarf} [--bf16] [--resume] [--conv_blur]
@@ -35,6 +37,8 @@ from nerf_experiments_tpu_torch.data import blender, sampler
 from nerf_experiments_tpu_torch.experiments import common
 from nerf_experiments_tpu_torch.models import garf
 from nerf_experiments_tpu_torch.ops import image_blur
+from nerf_experiments_tpu_torch.parallel import mesh as mesh_lib
+from nerf_experiments_tpu_torch.parallel import shard as shard_lib
 from nerf_experiments_tpu_torch.systems import garf_system
 from nerf_experiments_tpu_torch.training import loggers
 from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
@@ -185,14 +189,15 @@ def build_config(args, dm: blender.DataModule, steps_per_epoch: int):
     )
 
 
-def build(args, device=None):
-    """(cfg, state, trainer) on `device` (default --device)."""
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-device training) is not ported yet "
-                                  "(ROADMAP A13)")
+def build(args, device=None, mesh=None):
+    """(cfg, state, trainer) on `device` (default --device), or data-parallel
+    over `mesh` on its rank's device: the plain step under
+    `pjit_train_step`, even with --fused_kernel, as the JAX
+    `garf_main.py:219-230` runs it; image renders through `sharded_render`
+    and rank 0 alone writes."""
     if args.train_coarse_block > 1 and not args.fused_kernel:
         raise ValueError("--train_coarse_block requires --fused_kernel")
-    device = torch.device(device or args.device)
+    device = mesh.device if mesh is not None else torch.device(device or args.device)
     scene = common.resolve_scene(args.scene_path, args.image_size)
     dm = blender.DataModule(
         scene_path=scene, image_width=args.image_size, image_height=args.image_size,
@@ -210,8 +215,12 @@ def build(args, device=None):
 
     params = garf_system.init(torch.Generator().manual_seed(args.seed), cfg).to(device)
     state = garf_system.init_state(cfg, params)
-    step_fn = (garf_system.make_train_step_fused(cfg) if args.fused_kernel
-               else garf_system.make_train_step(cfg))
+    if mesh is not None:
+        shard_lib.shard_state(state, mesh)
+        step_fn = garf_system.make_train_step(cfg, mesh=mesh)
+    else:
+        step_fn = (garf_system.make_train_step_fused(cfg) if args.fused_kernel
+                   else garf_system.make_train_step(cfg))
 
     raw = train_store.camera_origins_raw
     noisy = train_store.camera_origins_noisy
@@ -230,7 +239,8 @@ def build(args, device=None):
                          f"+t{args.camera_origin_noise_sigma:.2f}")
     metric_logger = loggers.MetricLogger(
         args.out_dir, use_wandb=args.wandb,
-        wandb_kwargs={"project": "nerf-experiments", "name": name})
+        wandb_kwargs={"project": "nerf-experiments", "name": name},
+        active=mesh_lib.is_lead(mesh))
     trainer_cfg = TrainerConfig(
         max_epochs=max_epochs, max_steps=args.max_steps, batch_size=args.batch_size,
         seed=args.seed, checkpoint_every_n_epochs=args.checkpoint_every_n_epochs,
@@ -252,6 +262,12 @@ def build(args, device=None):
     # through the learned extrinsics, val through the gauge
     fused_render = garf_system.use_fused_render(cfg, device)
 
+    def forward_fn(params, o, d, pw):
+        return garf_system.forward(params, cfg, None, o, d, stratified=False,
+                                   fused=fused_render)[0]
+
+    render = forward_fn if mesh is None else shard_lib.sharded_render(forward_fn, mesh)
+
     @torch.no_grad()
     def render_fn(params, origs, dirs, pw, train_space, img_idx):
         o = torch.as_tensor(origs, device=device)
@@ -262,8 +278,7 @@ def build(args, device=None):
         else:
             o, d = calibration.validation_transform_rays(
                 o, d, garf_system.val_gauge(params, raw, noisy))
-        rgb, _, _, _ = garf_system.forward(params, cfg, None, o, d, stratified=False,
-                                           fused=fused_render)
+        rgb = render(params, o, d, torch.as_tensor(pw, device=device))
         return torch.clamp(rgb, 0.0, 1.0).cpu().numpy()
 
     schedule = (0.002, 1 / 24, 1.0, 5.0)
@@ -297,9 +312,10 @@ def build(args, device=None):
         scalar_fn=lambda step, ef: (cfg.act_anneal_at(step),),
         metric_logger=metric_logger, val_store=val_store, val_fn=val_step,
         pose_error_fn=pose_fn, callbacks=callbacks, lr_fn=garf_system.lr_fn(cfg, params),
-        checkpoint_manager=ckpt_mgr)
+        checkpoint_manager=ckpt_mgr, mesh=mesh)
     if args.resume and ckpt_mgr.latest_step() is not None:
         state = ckpt_mgr.restore(state)
+        shard_lib.reshard(state)
         print(f"resumed from step {ckpt_mgr.latest_step()}")
     if conv_blur is not None:
         # the trainer fires callbacks with the epoch fraction of the step just
@@ -312,8 +328,13 @@ def build(args, device=None):
 
 def main(argv=None) -> garf_system.TrainState:
     args = parse_args(argv)
-    _, state, trainer = build(args)
-    return trainer.fit(state)
+    mesh = common.mesh_from_flag(args.mesh, args.device)
+    try:
+        _, state, trainer = build(args, mesh=mesh)
+        return trainer.fit(state)
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

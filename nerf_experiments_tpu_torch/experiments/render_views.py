@@ -141,6 +141,7 @@ def _build_ingp(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    common.refuse_mesh(args, "render_views")
     entry_configs = {"mip": _build_mip, "bip": _build_bip, "ingp": _build_ingp}
     if args.entry in entry_configs:
         cfg, dm = entry_configs[args.entry](args)

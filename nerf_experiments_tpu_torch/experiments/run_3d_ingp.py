@@ -92,9 +92,7 @@ def parse_args(argv=None):
 
 def build_config(args):
     """(BarfConfig, data module, not yet set up) for these flags."""
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-device training) is not ported yet "
-                                  "(ROADMAP A13)")
+    common.refuse_mesh(args, "run_3d_ingp")
     scene = common.resolve_scene(args.scene_path, args.image_size)
     dm = blender.DataModule(
         scene_path=scene,

@@ -10,12 +10,16 @@ equidistant sampling with offset -1.
 device, parameters drawn from a generator seeded with --seed, the train step
 (`--fused_kernel`: the flagship train kernel) and the trainer; `main`
 trains, and with `--resume` continues from the latest checkpoint in
-<out_dir>/ckpt.
+<out_dir>/ckpt. `--mesh auto` trains data-parallel over every rank of a
+`torchrun` launch (one a card; the fused step runs K4 on every rank's shard),
+or over a one-rank mesh without a launcher:
 
     python -m nerf_experiments_tpu_torch.experiments.run_barf --fused_kernel \
         [--bf16] [--samples_per_ray 32 --samples_per_ray_proposal 64 \
         --proposal_hidden_dim 64 --proposal_n_hidden 1 | --occ_grid_resolution 64] \
         [--train_coarse_block 4]
+    torchrun --standalone --nproc_per_node=N \
+        -m nerf_experiments_tpu_torch.experiments.run_barf --mesh auto --fused_kernel ...
 """
 from __future__ import annotations
 
@@ -104,9 +108,6 @@ def parse_args(argv=None):
 
 def build_config(args):
     """(BarfConfig, data module, not yet set up) for these flags."""
-    if args.mesh:
-        raise NotImplementedError("--mesh (multi-device training) is not ported yet "
-                                  "(ROADMAP A13)")
     if args.train_coarse_block > 1:
         if not args.fused_kernel:
             raise ValueError("--train_coarse_block requires --fused_kernel")
@@ -189,8 +190,9 @@ def build_config(args):
     return cfg, dm
 
 
-def build(args, device=None) -> common.BarfExperiment:
-    """The experiment with its trainer, on `device` (default --device)."""
+def build(args, device=None, mesh=None) -> common.BarfExperiment:
+    """The experiment with its trainer, on `device` (default --device), or
+    data-parallel over `mesh` on its rank's device."""
     cfg, dm = build_config(args)
     trainer_cfg = TrainerConfig(
         max_epochs=args.max_epochs,
@@ -208,7 +210,7 @@ def build(args, device=None) -> common.BarfExperiment:
     return common.build_barf_experiment(
         cfg, dm, trainer_cfg, args.out_dir, device=device or args.device,
         use_wandb=args.wandb, wandb_name=name, image_log_names=(["r_1"], ["r_2"]),
-        fused=args.fused_kernel,
+        fused=args.fused_kernel, mesh=mesh,
         image_log_taper=(
             # constant period: (logging_start, delay_start, delay_end, taper)
             (args.image_log_period_epochs,) * 3 + (1.0,)
@@ -220,10 +222,15 @@ def main(argv=None) -> barf_sys.TrainState:
     """Train; with --resume, from the latest checkpoint in out_dir/ckpt (the
     reference's `trainer.fit(..., ckpt_path=...)`, barf/run_barf.py:198)."""
     args = parse_args(argv)
-    exp = build(args)
-    if args.resume:
-        common.resume_latest(exp, args.out_dir)
-    return exp.fit()
+    mesh = common.mesh_from_flag(args.mesh, args.device)
+    try:
+        exp = build(args, mesh=mesh)
+        if args.resume:
+            common.resume_latest(exp, args.out_dir)
+        return exp.fit()
+    finally:
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

@@ -59,6 +59,7 @@ def parse_args(argv=None):
 
 def build_config(args):
     """(BarfConfig, data module, not yet set up) for these flags."""
+    common.refuse_mesh(args, "run_bip_barf")
     scene = common.resolve_scene(args.scene_path, args.image_size)
     sigmas = common.blur_sigmas_from_start(args.max_blur_sigma, args.n_blur_sigmas)
     dm = blender.DataModule(

@@ -57,6 +57,7 @@ MIP_DENSITY_SCALE = 21.0
 
 def build_config(args):
     """(BarfConfig, data module, not yet set up) for these flags."""
+    common.refuse_mesh(args, "run_mip_nerf")
     scene = common.resolve_scene(args.scene_path, args.image_size)
     # the automatic space transform puts the scene at near/far 1/10 - 1/3
     dm = blender.DataModule(

@@ -40,6 +40,7 @@ def parse_args(argv=None):
 
 def build(args, device=None) -> common.BarfExperiment:
     """The experiment with its trainer, on `device` (default --device)."""
+    common.refuse_mesh(args, "run_naive_to_vanilla")
     scene = common.resolve_scene(args.scene_path, args.image_size)
     dm = blender.DataModule(
         scene_path=scene,

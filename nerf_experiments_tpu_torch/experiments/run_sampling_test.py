@@ -37,6 +37,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    common.refuse_mesh(args, "run_sampling_test")
     results = []
     for strategy, integration, offset in itertools.product(
             args.strategies, args.integrations, args.offsets):

@@ -12,13 +12,46 @@ Reference semantics:
     linear in-bin placement.
 
 Randomness comes from an explicit `torch.Generator`, or from uniforms handed
-in (`u=`: a test's way to give both packages the same draws).
+in (`u=`: a test's way to give both packages the same draws). Every draw has
+one row a ray and goes through `rand_rows`, so that a data-parallel rank's
+`RowShard` of the step generator draws its rows of the global batch's draw.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """The step generator as one of `world` data-parallel ranks sees it:
+    a draw of n rows draws n * world rows from `generator` and keeps rows
+    [rank n, (rank + 1) n). The ranks together draw what one device draws
+    for the global batch, which is the JAX package's pjit step (its random
+    draws are the global batch's), and every rank's generator stays in step."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+    def initial_seed(self) -> int:
+        return self.generator.initial_seed()
+
+
+Generator = Union[torch.Generator, RowShard]
+
+
+def rand_rows(generator: Generator, n_rows: int, n_cols: int, device=None,
+              dtype=None) -> torch.Tensor:
+    """(n_rows, n_cols) uniforms in [0, 1) from `generator`, one row a ray;
+    a `RowShard` keeps its rank's rows of the global draw."""
+    if isinstance(generator, RowShard):
+        u = torch.rand((n_rows * generator.world, n_cols), generator=generator.generator,
+                       device=device, dtype=dtype)
+        return u[generator.rank * n_rows:(generator.rank + 1) * n_rows]
+    return torch.rand((n_rows, n_cols), generator=generator, device=device, dtype=dtype)
 
 
 def intervals_from_t(t: torch.Tensor, far: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,7 +81,7 @@ def sample_stratified(
         if u is None:
             if generator is None:
                 raise ValueError("stratified_uniform requires a generator")
-            u = torch.rand((n_rays, n_samples), generator=generator, device=device)
+            u = rand_rows(generator, n_rays, n_samples, device=device)
         t = t + u * interval
     elif strategy != "equidistant":
         raise ValueError(f"unknown sampling strategy {strategy!r}")
@@ -56,8 +89,7 @@ def sample_stratified(
     if offset_size != 0.0:
         if generator is None:
             raise ValueError("offset_size != 0 requires a generator")
-        t = t + torch.rand((n_rays, 1), generator=generator,
-                           device=device) * interval * offset_size
+        t = t + rand_rows(generator, n_rays, 1, device=device) * interval * offset_size
     return intervals_from_t(t, far)
 
 
@@ -106,8 +138,8 @@ def sample_pdf(
     elif generator is None:
         u = ((steps + 0.5) / n_samples).expand(n_rays, n_samples).contiguous()
     else:
-        u = (steps + torch.rand((n_rays, n_samples), generator=generator,
-                                dtype=w.dtype, device=w.device)) / n_samples
+        u = (steps + rand_rows(generator, n_rays, n_samples, device=w.device,
+                               dtype=w.dtype)) / n_samples
 
     # last bin whose lower cdf edge is <= u; residual mass (u beyond the last
     # edge from rounding) goes to the last bin
@@ -150,8 +182,7 @@ def unit_edges(
     if stratified:
         if generator is None:
             raise ValueError("stratified edges require a generator")
-        jitter = (torch.rand((n_rays, n_bins + 1), generator=generator, device=device)
-                  - 0.5) / n_bins
+        jitter = (rand_rows(generator, n_rays, n_bins + 1, device=device) - 0.5) / n_bins
         jitter[:, 0] = 0.0
         jitter[:, -1] = 0.0
         s = s + jitter

@@ -24,7 +24,11 @@ plain torch (under autograd when training) and composites through the
 compositing kernels (`ops/render.py:render_rays_auto`).
 
 The train steps update the state in place (parameters, Adam state, step) and
-return it, with metrics as device scalars.
+return it, with metrics as device scalars. Given a mesh (`parallel/mesh.py`,
+the counterpart of the JAX steps' `axis_name`) they take this rank's shard
+of the batch and average the gradients and losses over the mesh's data group
+before the guard and Adam (`parallel/shard.py:sync`); without one they run
+no collective.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from nerf_experiments_tpu_torch.ops.train_megakernel import (
     is_flagship,
     kernels_fit,
 )
+from nerf_experiments_tpu_torch.parallel import shard
 from nerf_experiments_tpu_torch.training import optim
 from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
@@ -459,11 +464,15 @@ def _maybe_refresh_occ(cfg: BarfConfig, params: BarfParams, step: int, generator
 
 
 def _apply_update(state: TrainState, cfg: BarfConfig, metrics: Dict, generator,
-                  alpha_pos, alpha_dir) -> Tuple[TrainState, Dict]:
+                  alpha_pos, alpha_dir, mesh=None) -> Tuple[TrainState, Dict]:
     """Non-finite guard + multi-group Adam, then the occupancy refresh at the
-    step before its increment, in place."""
-    metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
-    state.optimizer.step()
+    step before its increment, in place. With a mesh, `parallel/shard.py:
+    update` averages the gradients and metrics over its data group first."""
+    if mesh is not None:
+        metrics = shard.update(state, metrics, mesh)
+    else:
+        metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
+        state.optimizer.step()
     _maybe_refresh_occ(cfg, state.params, state.step, generator, alpha_pos, alpha_dir)
     state.step += 1
     return state, metrics
@@ -478,15 +487,18 @@ def train_step(
     alpha_dir,
     blur_sigma: float,
     pixel_width_sigma: float = 0.0,
+    mesh=None,
 ) -> Tuple[TrainState, Dict]:
     """One optimization step: torch autograd of `loss_fn`, the non-finite
-    guard and the multi-group Adam update (and the occupancy refresh)."""
+    guard and the multi-group Adam update (and the occupancy refresh). With
+    a mesh, `parallel/shard.py:pjit_train_step` hands it the rank's batch
+    shard and a `sampling.RowShard` of the step generator."""
     state.optimizer.zero_grad()
     loss, metrics = loss_fn(state.params, cfg, batch, generator, alpha_pos, alpha_dir,
                             blur_sigma, pixel_width_sigma)
     loss.backward()
     metrics["loss"] = loss.detach()
-    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir)
+    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir, mesh)
 
 
 def train_step_fused(
@@ -497,6 +509,7 @@ def train_step_fused(
     alpha_pos,
     alpha_dir,
     blur_sigma: float,
+    mesh=None,
 ) -> Tuple[TrainState, Dict]:
     """One optimization step with the radiance pass through the flagship
     train kernel (`flagship_train_grads`: forward, compositing, MSE gradient
@@ -512,7 +525,15 @@ def train_step_fused(
     b rays, `TrainerConfig.batch_block`), its loss is over those rays, and
     its fine bins serve each run. Autograd through the slice scatters the
     coarse stage's ray gradients back into full-size ones, as the JAX
-    package's VJP does."""
+    package's VJP does.
+
+    With a mesh (`parallel/shard.py:shard_map_train_step_fused`) the batch is
+    this rank's shard and the kernel runs on it; the bins are drawn from the
+    step seed folded with the data rank (`mix_seed(seed, data_rank)`, JAX's
+    `fold_in(key, axis_index)`; with one data rank the step generator itself,
+    so that a one-rank mesh is the step without one), the occupancy refresh
+    from the unfolded seed, and the gradients and losses are averaged over
+    the data group before the guard and Adam."""
     if not can_fuse_train_step(cfg):
         raise ValueError("train_step_fused needs a config that can_fuse_train_step accepts")
     params = state.params
@@ -528,6 +549,9 @@ def train_step_fused(
     gen = generator if needs_gen else None
     if needs_gen and gen is None:
         raise ValueError("stratified bins of this config need a generator")
+    if gen is not None and mesh is not None and mesh.data_size > 1:
+        gen = torch.Generator(device=origs.device).manual_seed(
+            mix_seed(generator.initial_seed(), mesh.data_rank))
     blk = max(1, cfg.train_coarse_block)
     if n_rays % blk:
         raise ValueError(f"train_coarse_block {blk} must divide the batch ({n_rays} rays)")
@@ -579,18 +603,26 @@ def train_step_fused(
         loss = loss + cfg.coarse_loss_weight * loss_coarse.detach()
         metrics["loss_coarse"] = loss_coarse.detach()
     metrics.update(loss_fine=loss_fine, psnr=psnr(loss_fine), loss=loss)
-    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir)
+    return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir, mesh)
 
 
-def make_train_step(cfg: BarfConfig, fused: bool = False):
+def make_train_step(cfg: BarfConfig, fused: bool = False, mesh=None):
     """(state, batch, generator, alpha_pos, alpha_dir, blur_sigma
     [, pixel_width_sigma]) -> (state, metrics): the plain step, or with
-    fused=True the flagship train kernel's."""
+    fused=True the flagship train kernel's. With a mesh, the data-parallel
+    step on this rank's batch shard: `shard_map_train_step_fused`, or the
+    plain step under `pjit_train_step`."""
     if fused:
         if not can_fuse_train_step(cfg):
             raise ValueError("fused=True needs a config that can_fuse_train_step accepts")
+        if mesh is not None:
+            return shard.shard_map_train_step_fused(cfg, mesh)
         return lambda state, batch, gen, a_pos, a_dir, sigma: train_step_fused(
             state, cfg, batch, gen, a_pos, a_dir, sigma)
+    if mesh is not None:
+        return shard.pjit_train_step(
+            lambda state, batch, gen, a_pos, a_dir, sigma, pw_sigma=0.0, *, mesh: train_step(
+                state, cfg, batch, gen, a_pos, a_dir, sigma, pw_sigma, mesh=mesh), mesh)
     return lambda state, batch, gen, a_pos, a_dir, sigma, pw_sigma=0.0: train_step(
         state, cfg, batch, gen, a_pos, a_dir, sigma, pw_sigma)
 

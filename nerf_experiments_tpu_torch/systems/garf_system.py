@@ -16,7 +16,11 @@ gradients, the compositing weights and the geometry gradients. The proposal
 stage (about 3 % of the FLOPs) stays plain torch under autograd.
 
 The train steps update the state in place (parameters, optimizer state,
-step) and return it, with metrics as device scalars.
+step) and return it, with metrics as device scalars. The plain step takes a
+mesh (`parallel/mesh.py`): with one, the batch is this rank's shard and the
+gradients and losses are averaged over the data group before the guard and
+the update; the JAX package runs GARF under a mesh through this plain step
+only, as the port does (`experiments/garf_main.py`).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from nerf_experiments_tpu_torch.ops.garf_megakernel import (
     garf_radiance_train_grads,
 )
 from nerf_experiments_tpu_torch.ops.metrics import psnr
+from nerf_experiments_tpu_torch.parallel import shard
 from nerf_experiments_tpu_torch.training import optim
 
 
@@ -269,24 +274,31 @@ def loss_fn(
     return loss, metrics
 
 
-def _apply_update(state: TrainState, metrics: Dict) -> Tuple[TrainState, Dict]:
-    """Non-finite guard + multi-group Adam, in place."""
-    metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
-    state.optimizer.step()
+def _apply_update(state: TrainState, metrics: Dict, mesh=None) -> Tuple[TrainState, Dict]:
+    """Non-finite guard + multi-group Adam, in place; with a mesh, through
+    `parallel/shard.py:update`, which first averages the gradients and
+    metrics over its data group."""
+    if mesh is not None:
+        metrics = shard.update(state, metrics, mesh)
+    else:
+        metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
+        state.optimizer.step()
     state.step += 1
     return state, metrics
 
 
 def train_step(state: TrainState, cfg: GarfSystemConfig, batch: Dict,
-               generator: Optional[torch.Generator], act_anneal=1.0
+               generator: Optional[torch.Generator], act_anneal=1.0, mesh=None
                ) -> Tuple[TrainState, Dict]:
     """One optimization step: torch autograd of `loss_fn`, the non-finite
-    guard and the multi-group Adam update."""
+    guard and the multi-group Adam update. With a mesh,
+    `parallel/shard.py:pjit_train_step` hands it the rank's batch shard and a
+    `sampling.RowShard` of the step generator."""
     state.optimizer.zero_grad()
     loss, metrics = loss_fn(state.params, cfg, batch, generator, True, None, act_anneal)
     loss.backward()
     metrics["loss"] = loss.detach()
-    return _apply_update(state, metrics)
+    return _apply_update(state, metrics, mesh)
 
 
 def train_step_fused(state: TrainState, cfg: GarfSystemConfig, batch: Dict,
@@ -340,8 +352,13 @@ def train_step_fused(state: TrainState, cfg: GarfSystemConfig, batch: Dict,
     return _apply_update(state, metrics)
 
 
-def make_train_step(cfg: GarfSystemConfig):
-    """(state, batch, generator[, act_anneal]) -> (state, metrics)."""
+def make_train_step(cfg: GarfSystemConfig, mesh=None):
+    """(state, batch, generator[, act_anneal]) -> (state, metrics); with a
+    mesh, the data-parallel step on this rank's batch shard."""
+    if mesh is not None:
+        return shard.pjit_train_step(
+            lambda state, batch, gen, act_anneal=1.0, *, mesh: train_step(
+                state, cfg, batch, gen, act_anneal, mesh), mesh)
     return lambda state, batch, gen, act_anneal=1.0: train_step(state, cfg, batch, gen,
                                                                 act_anneal)
 

@@ -25,7 +25,9 @@ Everything is host-side numpy and pull-based: callbacks receive (step,
 epoch fraction, params, context) from the trainer and fetch device tensors
 only when they actually fire. A copy of the JAX package's module (it imports
 no JAX); the metric file is opened at the first row, so a logger that never
-logs leaves no file.
+logs leaves no file. On a mesh every rank runs the loggers (their renders are
+collective) and only global rank 0's `MetricLogger` is `active`: the others
+write nothing.
 """
 from __future__ import annotations
 
@@ -65,13 +67,16 @@ class TaperSchedule:
 
 
 class MetricLogger:
-    """JSONL metrics file + optional wandb mirror."""
+    """JSONL metrics file + optional wandb mirror; `active=False` (a rank
+    other than 0) writes nothing."""
 
-    def __init__(self, out_dir: str, use_wandb: bool = False, wandb_kwargs: Optional[dict] = None):
+    def __init__(self, out_dir: str, use_wandb: bool = False, wandb_kwargs: Optional[dict] = None,
+                 active: bool = True):
         self.path = os.path.join(out_dir, "metrics.jsonl")
+        self.active = active
         self._f = None
         self._wandb = None
-        if use_wandb:
+        if use_wandb and active:
             try:
                 import wandb
 
@@ -80,6 +85,8 @@ class MetricLogger:
                 self._wandb = None
 
     def log(self, metrics: Dict, step: int) -> None:
+        if not self.active:
+            return
         row = {"step": int(step)}
         for k, v in metrics.items():
             try:
@@ -96,6 +103,8 @@ class MetricLogger:
 
     def log_image(self, name: str, image: np.ndarray, step: int) -> None:
         """image: (H, W, 3) float in [0,1]; saved as PNG."""
+        if not self.active:
+            return
         img_dir = os.path.join(os.path.dirname(self.path), "images")
         os.makedirs(img_dir, exist_ok=True)
         arr = (np.clip(image, 0, 1) * 255).astype(np.uint8)
@@ -112,6 +121,8 @@ class MetricLogger:
 
     def log_points(self, name: str, points: np.ndarray, colors: np.ndarray, step: int) -> None:
         """points (N,3), colors (N,3) uint8 — saved .npz + wandb Object3D."""
+        if not self.active:
+            return
         pts_dir = os.path.join(os.path.dirname(self.path), "points")
         os.makedirs(pts_dir, exist_ok=True)
         np.savez(os.path.join(pts_dir, f"{name}_{step:08d}.npz"), points=points, colors=colors)
@@ -220,7 +231,8 @@ class RayDensityLogger:
         if self.schedule is not None and not self.schedule.should_fire(epoch_frac):
             return False
         out_dir = os.path.join(os.path.dirname(self.metric_logger.path), "rays")
-        os.makedirs(out_dir, exist_ok=True)
+        if self.metric_logger.active:
+            os.makedirs(out_dir, exist_ok=True)
         for name in self.image_names:
             if dataset is None or name not in dataset.image_name_to_index:
                 continue
@@ -233,6 +245,8 @@ class RayDensityLogger:
             pos = o[None] + t[:, None] * d[None]
             dirs = np.broadcast_to(d, pos.shape)
             profile = {k: np.asarray(v) for k, v in self.density_fn(params, pos, dirs).items()}
+            if not self.metric_logger.active:
+                continue
             np.savez(os.path.join(out_dir, f"{name}_{step:08d}.npz"), t=t, **profile)
         return True
 

@@ -102,6 +102,9 @@ class MultiGroupAdam:
              for label, g in groups.items()],
             lr=0.0, betas=(adam_b1, adam_b2), eps=eps, weight_decay=0.0)
         self.count = 0  # updates taken: the schedules' step
+        # leaves split over a mesh's model axis (`parallel/shard.py:shard_state`):
+        # their shards stand in for them in the groups above
+        self.model_shards = []
 
     def params(self) -> List[torch.Tensor]:
         return [p for group in self.adam.param_groups for p in group["params"]]

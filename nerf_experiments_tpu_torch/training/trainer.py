@@ -21,6 +21,16 @@ resumed from a checkpoint reproduces the uninterrupted one bit for bit.
 The state is any object with `.step` (int) and `.params` that a step
 function takes and returns; steps may update it in place. Rollback
 snapshots are deep copies.
+
+On a mesh (`parallel/mesh.py`) every rank runs this loop in step: each draws
+the global batch's indices from the same step generator and gathers its
+shard of them (`shard_batch`); the step (a data-parallel one) reduces the
+gradients and losses, so every rank takes the same rollback and post-mortem
+decisions without a collective of its own. Validation and the pose error
+run on every rank (the parameters are replicated); metric rows, image and
+point logs (through the metric logger, active on rank 0 only), the
+post-mortem dump and checkpoint writes (full parameters and Adam moments,
+with a model axis gathered first) happen on global rank 0 only.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ import numpy as np
 import torch
 
 from nerf_experiments_tpu_torch.data import sampler as sampler_lib
+from nerf_experiments_tpu_torch.parallel import shard as shard_lib
+from nerf_experiments_tpu_torch.parallel.mesh import is_lead, shard_batch
 from nerf_experiments_tpu_torch.training.loggers import MetricLogger
 from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
@@ -91,6 +103,7 @@ class Trainer:
         checkpoint_manager=None,
         callbacks: Optional[List[Callable]] = None,  # f(trainer, state, step, epoch_frac)
         lr_fn: Optional[Callable] = None,  # (step) -> {"lr_<group>": float}
+        mesh=None,  # parallel.mesh.Mesh: step_fn is data-parallel over it
     ):
         self.cfg = cfg
         self.train_store = train_store
@@ -128,6 +141,12 @@ class Trainer:
                 f"batch_block {block} must divide the batch ({cfg.batch_size}), the rays "
                 f"({train_store.n_rays}) and the rays of an image ({train_store.hw})")
         self._block = block
+        self.mesh = mesh
+        self._lead = is_lead(mesh)
+        if mesh is not None and cfg.batch_size % (mesh.data_size * block):
+            raise ValueError(
+                f"batch {cfg.batch_size} does not split into {mesh.data_size} shards of whole "
+                f"{block}-ray blocks")
         self._base_seed = self._base_seed0 = mix_seed(cfg.seed)
         self._generator = torch.Generator(device=train_store.device)
         # the per-ray tensors every batch is gathered from (train steps, the
@@ -141,15 +160,18 @@ class Trainer:
         """The generator of one step: seeded from (base seed, step)."""
         return self._generator.manual_seed(mix_seed(base_seed, step))
 
-    def _batch(self, generator: torch.Generator) -> dict:
+    def _batch(self, generator: torch.Generator, shard: bool = True) -> dict:
         """The step's batch: independent rays, or aligned runs of
-        `batch_block` rays from run starts drawn by `generator`."""
+        `batch_block` rays from run starts drawn by `generator`; on a mesh,
+        this rank's shard of it unless `shard` is False."""
         store, block = self.train_store, self._block
         idx = torch.randint(0, store.n_rays // block, (self.cfg.batch_size // block,),
                             generator=generator, device=store.device)
         if block > 1:
             idx = (block * idx[:, None]
                    + torch.arange(block, device=store.device)).reshape(-1)
+        if self.mesh is not None and shard:
+            idx = shard_batch(idx, self.mesh, block)
         return sampler_lib.gather_batch_arrays(self._train_arrays, store.pixel_width, idx)
 
     def swap_train_colors(self, colors: torch.Tensor) -> None:
@@ -165,8 +187,9 @@ class Trainer:
         self._train_arrays = dict(self._train_arrays, colors=colors)
 
     def regen_batch(self, step: int) -> dict:
-        """The batch step `step` trained on (under the current seed stream)."""
-        return self._batch(self.step_generator(self._base_seed, step))
+        """The batch step `step` trained on (under the current seed stream);
+        on a mesh, the global batch of all ranks."""
+        return self._batch(self.step_generator(self._base_seed, step), shard=False)
 
     def fit(self, state) -> Any:
         cfg = self.cfg
@@ -225,11 +248,20 @@ class Trainer:
 
             if epoch_frac >= next_ckpt and self.checkpoint_manager is not None:
                 next_ckpt += cfg.checkpoint_every_n_epochs
-                self.checkpoint_manager.save(step, state)
+                self._save(step, state)
 
         if self.checkpoint_manager is not None:
-            self.checkpoint_manager.save(step, state)
+            self._save(step, state)
         return state
+
+    def _save(self, step: int, state) -> None:
+        """A checkpoint of the full parameters and Adam moments, written by
+        global rank 0 (with a model axis every rank first takes part in
+        gathering the split moments)."""
+        if self.mesh is not None:
+            state = shard_lib.checkpoint_view(state, self.mesh)
+        if self._lead:
+            self.checkpoint_manager.save(step, state)
 
     def _rollback_check(self, state, step: int):
         """Fetch the buffered losses in one transfer, run the spike detector,
@@ -286,7 +318,8 @@ class Trainer:
         flags = torch.stack([torch.as_tensor(p[2]) for p in self._pending_finite]).cpu()
         for (bad_step, scalars, _), ok in zip(self._pending_finite, flags.tolist()):
             if not ok:
-                self._dump_postmortem(bad_step, scalars)
+                if self._lead:
+                    self._dump_postmortem(bad_step, scalars)
                 self._postmortem_done = True
                 break
         self._pending_finite.clear()
