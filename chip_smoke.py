@@ -3346,8 +3346,7 @@ def phase_scene_generator(dev, workdir):
 
 def phase_tools(dev, workdir):
     """`profiling.trace` around two SIREN steps writes a Chrome trace that
-    names the K1 / K3 launches; `StepTimer`'s rays/s over them;
-    `native.available()`."""
+    names the K1 / K3 launches; `native.available()`."""
     import copy
 
     from nerf_experiments_tpu_torch.data import native
@@ -3362,13 +3361,11 @@ def phase_tools(dev, workdir):
     step = barf_sys.make_train_step(cfg)
     step(state, batch, torch.Generator(device=dev).manual_seed(82), 0.0, 0.0, 0.0)
     trace_dir = os.path.join(workdir, "trace")
-    timer = profiling.StepTimer(dev, warmup=1)
     with profiling.trace(trace_dir):
         for i in range(2):
             with profiling.annotate(f"siren_step_{i}"):
                 step(state, batch, torch.Generator(device=dev).manual_seed(83 + i), 0.0, 0.0,
                      0.0)
-            timer.tick(rays=SIREN_RAYS)
     with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
@@ -3376,8 +3373,7 @@ def phase_tools(dev, workdir):
     k3 = sum("render_bwd_kernel" in n for n in names)
     annotated = sum(e.get("name", "").startswith("siren_step_") for e in events)
     log(f"profiling.trace around 2 SIREN steps: {len(names)} kernel events, render_fwd_kernel "
-        f"x{k1}, render_bwd_kernel x{k3}, {annotated} annotated ranges; StepTimer "
-        f"{timer.rays_per_sec():.0f} rays/s over the traced step")
+        f"x{k1}, render_bwd_kernel x{k3}, {annotated} annotated ranges")
     require(k1 == 4 and k3 == 4, f"the trace does not name the K1 / K3 launches: {k1}, {k3}")
     log(f"native.available() = {native.available()} ({native.library_path()})")
     return {"native": native.available()}

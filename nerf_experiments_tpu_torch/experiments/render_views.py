@@ -29,6 +29,7 @@ from nerf_experiments_tpu_torch.experiments import common, run_barf
 from nerf_experiments_tpu_torch.ops.metrics import psnr
 from nerf_experiments_tpu_torch.systems import barf as barf_sys
 from nerf_experiments_tpu_torch.training.checkpoints import CheckpointManager
+from nerf_experiments_tpu_torch.utils.profiling import annotate
 
 # run_barf config flags needed to rebuild the same model
 _RUN_BARF_ARGS = (
@@ -170,13 +171,15 @@ def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
     out = np.empty((origs.shape[0], 3), np.float32)
     for lo in range(0, origs.shape[0], chunk):
         hi = min(lo + chunk, origs.shape[0])
-        pad = (lo - hi) % serve_block
-        o_c, d_c = origs[lo:hi], dirs[lo:hi]
-        if pad:
-            o_c = np.concatenate([o_c, origs[hi - pad:hi]])
-            d_c = np.concatenate([d_c, dirs[hi - pad:hi]])
-        o, d = calibration.validation_transform_rays(
-            torch.as_tensor(o_c, device=device), torch.as_tensor(d_c, device=device), gauge)
+        with annotate("render.rays"):
+            pad = (lo - hi) % serve_block
+            o_c, d_c = origs[lo:hi], dirs[lo:hi]
+            if pad:
+                o_c = np.concatenate([o_c, origs[hi - pad:hi]])
+                d_c = np.concatenate([d_c, dirs[hi - pad:hi]])
+            o_c = torch.as_tensor(o_c, device=device)
+            d_c = torch.as_tensor(d_c, device=device)
+        o, d = calibration.validation_transform_rays(o_c, d_c, gauge)
         with torch.no_grad():
             if serve_block > 1:
                 rgb = barf_sys.render_block_coarse(params, cfg, o, d, alpha_pos, alpha_dir,
@@ -185,7 +188,8 @@ def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
                 pw = torch.full((hi - lo, 1), pixel_width, device=device)
                 rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
                                           stratified=False, fused=fused)
-        out[lo:hi] = torch.clamp(rgb[:hi - lo], 0.0, 1.0).cpu().numpy()
+        with annotate("render.to_host"):
+            out[lo:hi] = torch.clamp(rgb[:hi - lo], 0.0, 1.0).cpu().numpy()
     return out
 
 

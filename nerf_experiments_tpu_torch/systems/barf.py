@@ -32,6 +32,7 @@ no collective.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -55,6 +56,7 @@ from nerf_experiments_tpu_torch.ops.train_megakernel import (
 )
 from nerf_experiments_tpu_torch.parallel import shard
 from nerf_experiments_tpu_torch.training import optim
+from nerf_experiments_tpu_torch.utils.profiling import annotate
 from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
 
@@ -316,22 +318,23 @@ def forward(
             gen, n_rays, n_samples, cfg.near, cfg.far, strategy, offset, device=device)
 
     rgb_coarse = None
-    if cfg.use_proposal:
-        tc_start, tc_end = stratified_bins(cfg.samples_per_ray_proposal)
-        dens_c, rgb_c_samples = _eval_model(
-            *_proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
-            pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
-        )
-        rgb_coarse, weights = render.render_rays_auto(
-            dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
-        tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
-            tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
-    elif cfg.use_occ:
-        tf_start, tf_end = occgrid.sample_intervals(
-            params.occ, cfg.occ, ray_origs, ray_dirs, cfg.near, cfg.far,
-            cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
-    else:
-        tf_start, tf_end = stratified_bins(cfg.samples_per_ray_radiance)
+    with annotate("render.bins"):
+        if cfg.use_proposal:
+            tc_start, tc_end = stratified_bins(cfg.samples_per_ray_proposal)
+            dens_c, rgb_c_samples = _eval_model(
+                *_proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
+                pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
+            )
+            rgb_coarse, weights = render.render_rays_auto(
+                dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
+            tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
+                tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+        elif cfg.use_occ:
+            tf_start, tf_end = occgrid.sample_intervals(
+                params.occ, cfg.occ, ray_origs, ray_dirs, cfg.near, cfg.far,
+                cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
+        else:
+            tf_start, tf_end = stratified_bins(cfg.samples_per_ray_radiance)
 
     return rgb_fine_pass(params, cfg, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
                          alpha_pos, alpha_dir, pixel_width_sigma, fused), rgb_coarse
@@ -342,14 +345,16 @@ def rgb_fine_pass(params: BarfParams, cfg: BarfConfig, ray_origs, ray_dirs, t_st
                   fused: bool = False) -> torch.Tensor:
     """The radiance pass over fine bins: rgb (N, 3), through `flagship_render`
     when `fused`, else the model definition and `render_rays_auto`."""
-    if fused:
-        return flagship_render(params.radiance, cfg.radiance, ray_origs, ray_dirs, t_start,
-                               t_end, alpha_pos, alpha_dir, density_scale=cfg.density_scale)[0]
-    dens_f, rgb_f_samples = _eval_model(
-        model_def(cfg.radiance), params.radiance, ray_origs, ray_dirs, t_start, t_end,
-        pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma)
-    return render.render_rays_auto(dens_f, rgb_f_samples, t_end - t_start,
+    with annotate("render.fine"):
+        if fused:
+            return flagship_render(params.radiance, cfg.radiance, ray_origs, ray_dirs, t_start,
+                                   t_end, alpha_pos, alpha_dir,
                                    density_scale=cfg.density_scale)[0]
+        dens_f, rgb_f_samples = _eval_model(
+            model_def(cfg.radiance), params.radiance, ray_origs, ray_dirs, t_start, t_end,
+            pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma)
+        return render.render_rays_auto(dens_f, rgb_f_samples, t_end - t_start,
+                                       density_scale=cfg.density_scale)[0]
 
 
 @dataclasses.dataclass
@@ -410,13 +415,15 @@ def loss_fn(
 ):
     """Full training/val objective (`BarfModel._step_helper:29-92`):
     (loss, metrics)."""
-    if train:
-        origs, dirs = calibration.training_transform_rays(
-            params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
-    else:
-        origs, dirs = calibration.validation_transform_rays(
-            batch["origs_raw"], batch["dirs_raw"], val_gauge)
-    target = blurred_pixel_colors(batch["colors"], cfg.gaussian_blur_sigmas, blur_sigma)[:, 0]
+    with annotate("trainer.step.camera") if train else contextlib.nullcontext():
+        if train:
+            origs, dirs = calibration.training_transform_rays(
+                params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
+        else:
+            origs, dirs = calibration.validation_transform_rays(
+                batch["origs_raw"], batch["dirs_raw"], val_gauge)
+        target = blurred_pixel_colors(batch["colors"], cfg.gaussian_blur_sigmas,
+                                      blur_sigma)[:, 0]
     rgb_fine, rgb_coarse = forward(
         params, cfg, generator, origs, dirs, batch["pixel_width"], alpha_pos, alpha_dir,
         pixel_width_sigma, stratified=train)
@@ -468,12 +475,13 @@ def _apply_update(state: TrainState, cfg: BarfConfig, metrics: Dict, generator,
     """Non-finite guard + multi-group Adam, then the occupancy refresh at the
     step before its increment, in place. With a mesh, `parallel/shard.py:
     update` averages the gradients and metrics over its data group first."""
-    if mesh is not None:
-        metrics = shard.update(state, metrics, mesh)
-    else:
-        metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
-        state.optimizer.step()
-    _maybe_refresh_occ(cfg, state.params, state.step, generator, alpha_pos, alpha_dir)
+    with annotate("trainer.step.update"):
+        if mesh is not None:
+            metrics = shard.update(state, metrics, mesh)
+        else:
+            metrics["grads_finite"] = optim.guard_nonfinite(state.optimizer.params())
+            state.optimizer.step()
+        _maybe_refresh_occ(cfg, state.params, state.step, generator, alpha_pos, alpha_dir)
     state.step += 1
     return state, metrics
 
@@ -496,7 +504,8 @@ def train_step(
     state.optimizer.zero_grad()
     loss, metrics = loss_fn(state.params, cfg, batch, generator, alpha_pos, alpha_dir,
                             blur_sigma, pixel_width_sigma)
-    loss.backward()
+    with annotate("trainer.step.backward"):
+        loss.backward()
     metrics["loss"] = loss.detach()
     return _apply_update(state, cfg, metrics, generator, alpha_pos, alpha_dir, mesh)
 
@@ -538,10 +547,11 @@ def train_step_fused(
         raise ValueError("train_step_fused needs a config that can_fuse_train_step accepts")
     params = state.params
     state.optimizer.zero_grad()
-    origs, dirs = calibration.training_transform_rays(
-        params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
-    target = blurred_pixel_colors(
-        batch["colors"], cfg.gaussian_blur_sigmas, blur_sigma)[:, 0].contiguous()
+    with annotate("trainer.step.camera"):
+        origs, dirs = calibration.training_transform_rays(
+            params.camera, batch["img_idx"], batch["origs_noisy"], batch["dirs_noisy"])
+        target = blurred_pixel_colors(
+            batch["colors"], cfg.gaussian_blur_sigmas, blur_sigma)[:, 0].contiguous()
     n_rays = origs.shape[0]
     strategy = cfg.uniform_sampling_strategy
     offset = cfg.uniform_sampling_offset_size
@@ -562,40 +572,43 @@ def train_step_fused(
 
     roots, root_grads, metrics = [], [], {}
     loss_coarse = None
-    if cfg.use_proposal:
-        tc_start, tc_end = sampling.sample_stratified(
-            gen, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
-            device=origs.device)
-        dens_c, rgb_c_samples = _eval_model(
-            *_proposal_model(params, cfg), rep(origs), rep(dirs), tc_start, tc_end,
-            rep(batch["pixel_width"]), alpha_pos, alpha_dir, cfg.integration_strategy)
-        rgb_coarse, weights = render.render_rays_auto(
-            dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
-        loss_coarse = torch.mean((rgb_coarse - rep(target)) ** 2)
-        roots.append(cfg.coarse_loss_weight * loss_coarse)
-        root_grads.append(torch.ones_like(loss_coarse))
-        t_start, t_end = sampling.sample_pdf_weighted_intervals(
-            tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
-    elif cfg.use_occ:
-        t_start, t_end = occgrid.sample_intervals(
-            params.occ, cfg.occ, rep(origs), rep(dirs), cfg.near, cfg.far,
-            cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
-    else:
-        t_start, t_end = sampling.sample_stratified(
-            gen, n_rays, cfg.samples_per_ray_radiance, cfg.near, cfg.far, strategy, offset,
-            device=origs.device)
-    t_start = sampling.broadcast_bins(t_start, blk).contiguous()
-    t_end = sampling.broadcast_bins(t_end, blk).contiguous()
+    with annotate("trainer.step.bins"):
+        if cfg.use_proposal:
+            tc_start, tc_end = sampling.sample_stratified(
+                gen, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, strategy, offset,
+                device=origs.device)
+            dens_c, rgb_c_samples = _eval_model(
+                *_proposal_model(params, cfg), rep(origs), rep(dirs), tc_start, tc_end,
+                rep(batch["pixel_width"]), alpha_pos, alpha_dir, cfg.integration_strategy)
+            rgb_coarse, weights = render.render_rays_auto(
+                dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
+            loss_coarse = torch.mean((rgb_coarse - rep(target)) ** 2)
+            roots.append(cfg.coarse_loss_weight * loss_coarse)
+            root_grads.append(torch.ones_like(loss_coarse))
+            t_start, t_end = sampling.sample_pdf_weighted_intervals(
+                tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+        elif cfg.use_occ:
+            t_start, t_end = occgrid.sample_intervals(
+                params.occ, cfg.occ, rep(origs), rep(dirs), cfg.near, cfg.far,
+                cfg.samples_per_ray_radiance, generator=gen, strategy=strategy)
+        else:
+            t_start, t_end = sampling.sample_stratified(
+                gen, n_rays, cfg.samples_per_ray_radiance, cfg.near, cfg.far, strategy, offset,
+                device=origs.device)
+        t_start = sampling.broadcast_bins(t_start, blk).contiguous()
+        t_end = sampling.broadcast_bins(t_end, blk).contiguous()
 
-    rgb_fine, grads_rad, d_origs, d_dirs = flagship_train_grads(
-        params.radiance, cfg.radiance, origs.detach().contiguous(),
-        dirs.detach().contiguous(), t_start, t_end, target,
-        alpha_pos, alpha_dir, density_scale=cfg.density_scale)
-    for name, p in params.radiance.named_parameters():
-        p.grad = grads_rad[name]
+    with annotate("trainer.step.k4"):
+        rgb_fine, grads_rad, d_origs, d_dirs = flagship_train_grads(
+            params.radiance, cfg.radiance, origs.detach().contiguous(),
+            dirs.detach().contiguous(), t_start, t_end, target,
+            alpha_pos, alpha_dir, density_scale=cfg.density_scale)
+        for name, p in params.radiance.named_parameters():
+            p.grad = grads_rad[name]
     # camera <- fine (the kernel's geometry gradients) + coarse; proposal (or
     # the shared radiance net, adding into its kernel gradients) <- coarse
-    torch.autograd.backward(roots + [origs, dirs], root_grads + [d_origs, d_dirs])
+    with annotate("trainer.step.backward"):
+        torch.autograd.backward(roots + [origs, dirs], root_grads + [d_origs, d_dirs])
 
     loss_fine = torch.mean((rgb_fine - target) ** 2)
     loss = loss_fine
@@ -683,26 +696,27 @@ def render_block_coarse(
     rep_origs, rep_dirs = ray_origs[::block], ray_dirs[::block]
     n_rep = rep_origs.shape[0]
     pw = torch.full((n_rep, 1), pixel_width, device=ray_origs.device)
-    if cfg.use_occ:
-        t_start, t_end = occgrid.sample_intervals(
-            params.occ, cfg.occ, rep_origs, rep_dirs, cfg.near, cfg.far,
-            cfg.samples_per_ray_radiance)
-    elif cfg.use_proposal:
-        tc_start, tc_end = sampling.sample_stratified(
-            None, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, "equidistant",
-            device=ray_origs.device)
-        dens_c, rgb_c = _eval_model(*_proposal_model(params, cfg), rep_origs, rep_dirs,
-                                    tc_start, tc_end, pw, alpha_pos, alpha_dir,
-                                    cfg.integration_strategy)
-        _, weights = render.render_rays_auto(dens_c, rgb_c, tc_end - tc_start,
-                                             density_scale=cfg.density_scale)
-        t_start, t_end = sampling.sample_pdf_weighted_intervals(
-            tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
-    else:
-        raise ValueError("render_block_coarse needs a coarse stage (proposal or occupancy)")
-    return rgb_fine_pass(params, cfg, ray_origs, ray_dirs,
-                         sampling.broadcast_bins(t_start, block),
-                         sampling.broadcast_bins(t_end, block),
+    with annotate("render.bins"):
+        if cfg.use_occ:
+            t_start, t_end = occgrid.sample_intervals(
+                params.occ, cfg.occ, rep_origs, rep_dirs, cfg.near, cfg.far,
+                cfg.samples_per_ray_radiance)
+        elif cfg.use_proposal:
+            tc_start, tc_end = sampling.sample_stratified(
+                None, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, "equidistant",
+                device=ray_origs.device)
+            dens_c, rgb_c = _eval_model(*_proposal_model(params, cfg), rep_origs, rep_dirs,
+                                        tc_start, tc_end, pw, alpha_pos, alpha_dir,
+                                        cfg.integration_strategy)
+            _, weights = render.render_rays_auto(dens_c, rgb_c, tc_end - tc_start,
+                                                 density_scale=cfg.density_scale)
+            t_start, t_end = sampling.sample_pdf_weighted_intervals(
+                tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
+        else:
+            raise ValueError("render_block_coarse needs a coarse stage (proposal or occupancy)")
+        t_start = sampling.broadcast_bins(t_start, block)
+        t_end = sampling.broadcast_bins(t_end, block)
+    return rgb_fine_pass(params, cfg, ray_origs, ray_dirs, t_start, t_end,
                          torch.full((n_rays, 1), pixel_width, device=ray_origs.device),
                          alpha_pos, alpha_dir, fused=use_fused_render(cfg, ray_origs.device))
 

@@ -48,6 +48,7 @@ from nerf_experiments_tpu_torch.data import sampler as sampler_lib
 from nerf_experiments_tpu_torch.parallel import shard as shard_lib
 from nerf_experiments_tpu_torch.parallel.mesh import is_lead, shard_batch
 from nerf_experiments_tpu_torch.training.loggers import MetricLogger
+from nerf_experiments_tpu_torch.utils.profiling import annotate
 from nerf_experiments_tpu_torch.utils.seeds import mix_seed
 
 _VAL_STREAM = 1  # validation's seed stream, apart from the train steps'
@@ -200,7 +201,9 @@ class Trainer:
         next_val = cfg.val_every_n_epochs
         next_ckpt = cfg.checkpoint_every_n_epochs or float("inf")
         t_start = time.perf_counter()
-        rays_done = 0
+        # the rate of a log row counts the rays and seconds since the row
+        # before it (the first: since fit() started)
+        t_row, rays_since_row = t_start, 0
 
         step = int(state.step)
         while step < total_steps:
@@ -210,33 +213,35 @@ class Trainer:
             batch = self._batch(gen)
             state, metrics = self.step_fn(state, batch, gen, *scalars)
             step += 1
-            rays_done += cfg.batch_size
+            rays_since_row += cfg.batch_size
             if not self._postmortem_done and "grads_finite" in metrics:
                 self._pending_finite.append((step - 1, scalars, metrics["grads_finite"]))
             if cfg.rollback_enabled and "loss" in metrics:
                 self._pending_losses.append(metrics["loss"])
 
             if step % cfg.log_every_n_steps == 0 or step == total_steps:
-                # float() here is also the device sync point
-                row = {k: float(v) for k, v in metrics.items()}
-                row["epoch_fraction"] = epoch_frac
-                if self.lr_fn is not None:
-                    row.update(self.lr_fn(step - 1))
-                self._check_postmortem()
-                dt = time.perf_counter() - t_start
-                row["train_rays_per_sec"] = rays_done / max(dt, 1e-9)
-                # wall seconds since fit() started: time-to-quality studies
-                # integrate over it
-                row["wall_s"] = round(dt, 3)
-                if self.pose_error_fn is not None and (
-                        step - self._last_pose_step >= cfg.pose_error_every_n_steps
-                        or step == total_steps):
-                    self._last_pose_step = step
-                    with torch.no_grad():
-                        row["pose_error"] = float(self.pose_error_fn(state.params))
-                self.metric_logger.log(row, step)
-                if cfg.rollback_enabled:
-                    state, step = self._rollback_check(state, step)
+                with annotate("trainer.log"):
+                    # float() here is also the device sync point
+                    row = {k: float(v) for k, v in metrics.items()}
+                    row["epoch_fraction"] = epoch_frac
+                    if self.lr_fn is not None:
+                        row.update(self.lr_fn(step - 1))
+                    self._check_postmortem()
+                    now = time.perf_counter()
+                    row["train_rays_per_sec"] = rays_since_row / max(now - t_row, 1e-9)
+                    t_row, rays_since_row = now, 0
+                    # wall seconds since fit() started: time-to-quality studies
+                    # integrate over it
+                    row["wall_s"] = round(now - t_start, 3)
+                    if self.pose_error_fn is not None and (
+                            step - self._last_pose_step >= cfg.pose_error_every_n_steps
+                            or step == total_steps):
+                        self._last_pose_step = step
+                        with torch.no_grad():
+                            row["pose_error"] = float(self.pose_error_fn(state.params))
+                    self.metric_logger.log(row, step)
+                    if cfg.rollback_enabled:
+                        state, step = self._rollback_check(state, step)
 
             for cb in self.callbacks:
                 cb(self, state, step, epoch_frac)

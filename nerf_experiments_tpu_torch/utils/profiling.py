@@ -5,24 +5,33 @@ Port of the JAX package's `utils/profiling.py` onto `torch.profiler`:
     (CUDA kernels through CUPTI) and writes a Chrome trace
     (`<dir>/trace.json`, open it in Perfetto or chrome://tracing);
   * `annotate(name)`: a labelled range in that trace
-    (`torch.profiler.record_function`);
-  * `StepTimer`: rays/s over steps after a warm-up, synchronised with the
-    card by `torch.cuda.synchronize` (a device tensor's `float()` is not
-    needed as a sync point here);
-  * rays/s is also a metric the trainer logs every log interval
-    (`training/trainer.py`: `train_rays_per_sec`).
+    (`torch.profiler.record_function`), on the profiler's clock, the one the
+    card's kernels are placed on. With no profiler running it is one shared
+    null context, so the spans the train steps and the serving loop enter
+    cost a check each.
+
+The program's spans, entered through `annotate` (no two siblings overlap):
+  * each train step (`systems/barf.py`): `trainer.step.camera` (the ray
+    transform and the blurred target), `trainer.step.bins` (the fused step's
+    coarse stage and fine bins), `trainer.step.k4` (the flagship train
+    kernel's call), `trainer.step.backward` (autograd), `trainer.step.update`
+    (guard, Adam, occupancy refresh);
+  * each log row of `Trainer.fit`: `trainer.log`;
+  * each chunk served (`render_views.render_image`): `render.rays` (the
+    chunk's rays to the card), `render.bins` (`forward` or
+    `render_block_coarse`: the fine bins; in the plain train step too),
+    `render.fine` (`rgb_fine_pass`), `render.to_host` (its rgb to the host).
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -43,45 +52,7 @@ def trace(log_dir: str):
 
 def annotate(name: str):
     """A labelled range of host work (and the kernels it launches) in the
-    trace."""
+    trace of a running profiler; with none running, a null context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return record_function(name)
-
-
-class StepTimer:
-    """Throughput meter: the clock starts after `warmup` ticks, at a device
-    sync, and `rays_per_sec` syncs again before it reads the clock.
-
-        timer = StepTimer(device)
-        for ...:
-            state, metrics = step(...)
-            timer.tick(rays=batch_size)
-        print(timer.rays_per_sec())
-    """
-
-    def __init__(self, device=None, warmup: int = 3):
-        device = torch.device(device) if device is not None else None
-        self._cuda = device is not None and device.type == "cuda"
-        self._device = device
-        self._warmup = warmup
-        self._count = 0
-        self._rays = 0
-        self._t0: Optional[float] = None
-
-    def sync(self) -> None:
-        if self._cuda:
-            torch.cuda.synchronize(self._device)
-
-    def tick(self, rays: int) -> None:
-        self._count += 1
-        if self._count == self._warmup:
-            self.sync()  # drain the queue before the clock starts
-            self._t0 = time.perf_counter()
-            self._rays = 0
-        elif self._count > self._warmup:
-            self._rays += rays
-
-    def rays_per_sec(self) -> float:
-        if self._t0 is None or self._rays == 0:
-            return float("nan")
-        self.sync()
-        return self._rays / (time.perf_counter() - self._t0)

@@ -118,14 +118,6 @@ def test_trace_writes_a_chrome_trace_with_the_annotations(tmp_path):
     assert any("mm" in e.key for e in prof.key_averages())
 
 
-def test_step_timer_counts_after_its_warmup():
-    t = profiling.StepTimer(device="cpu", warmup=2)
-    assert np.isnan(t.rays_per_sec())
-    for _ in range(10):
-        t.tick(rays=100)
-    assert t._rays == 800 and t.rays_per_sec() > 0
-
-
 # ---------------------------------------------------------------- studies
 
 
