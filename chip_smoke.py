@@ -28,21 +28,26 @@ Phases, each raising on failure:
      `flagship_train_grads_reference` at the flagship width (1024 x 128 fp32
      and bf16; 1024 x 32 fp32 with loss_scale and weights; 8192 x 32 bf16, the
      north-star training shape; 1023 x 32 and 333 x 100, fp32 and bf16; then
-     hidden 48 and 100, and 512 with bf16 on 32-row tiles): rgb, geometry
-     gradients, weights and every dW/db, and two launches bitwise equal;
+     hidden 48 and 100, 512 on 32-row tiles, and 632 in fp32, the FMA
+     kernel): rgb, geometry gradients, weights and every dW/db, and two
+     launches bitwise equal; each setting's route (`train_route`) and the
+     launches each route counted, the flagship width in fp32 on the 64-row
+     tile;
   8. one train step, `train_step_fused` against `train_step`, from the same
      state, batch and generator seed (dense fp32, north-star bf16): the
      loss, every gradient handed to Adam, and the update;
   9. the training entry point `run_barf.main --fused_kernel` end to end: the
      dense flagship at 32^2 (the logged train PSNR must rise by > 1 dB and
-     end above 10 dB), the north-star config at 100^2 with the kernel
-     launches counted, `--resume`, and `render_views` on the checkpoint;
+     end above 10 dB; every K4 launch on the fp32 tile), the north-star
+     config at 100^2 with the kernel launches counted (every K4 launch on
+     the bf16 tile), `--resume`, and `render_views` on the checkpoint;
      then `run_barf` at hidden 100 (fused, bf16) and 512 (plain step, fp32),
      each logging images through K2;
  10. time the train step (fused against plain) and the kernels alone at
      8192 rays (the compositing backward by its `torch.profiler` device
-     time per call on inputs rotated past the L2), profile one fused step
-     of each config, and time K4's weight packing (host and device) in bf16;
+     time per call on inputs rotated past the L2; K4 fp32 also at 1024 rays,
+     with its kernels' device ms), profile one fused step of each config, and
+     time K4's weight packing (host and device) in bf16;
  11. hold the GARF render kernel (K6, tensor cores: bf16, or 3xTF32 in
      fp32) against `garf_radiance_render_reference` for gauss, gabor and
      sarf, fp32 and bf16, gamma 1 and 0.37, at 1024 rays x 192 samples and a
@@ -514,17 +519,26 @@ def phase_render_bwd(dev):
 def phase_train_kernel(dev):
     """K4 against `flagship_train_grads_reference` at the flagship width:
     every output and every dW/db by relative norm, and two launches bitwise
-    equal. The last setting is the north-star training shape (8192 rays x
-    32 samples, bf16, 16 row splits in the dW reduction)."""
+    equal. The settings include the north-star training shape (8192 rays x
+    32 samples, bf16, 16 row splits in the dW reduction); each logs its route
+    (`train_route`: a tile's rows, or the FMA kernel) and the launches each
+    route counted, and the flagship width in fp32 must take the 64-row tile.
+    Returns the worst fp32 max abs error."""
+    from unittest import mock
+
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import sampling
+    from nerf_experiments_tpu_torch.ops import train_megakernel as tm
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
-        flagship_train_grads, flagship_train_grads_reference, tile_rows, train_workspace_bytes)
+        SMEM_LIMIT, fma_smem_bytes, flagship_train_grads, flagship_train_grads_reference,
+        train_route, train_workspace_bytes)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     worst_abs_fp32 = 0.0
     # the flagship width, then hidden 48 and 100 (colour 24 and 50, padded to
-    # 16 on the tensor cores) and 512 (bf16 on 32-row tiles)
+    # 16 on the tensor cores), 512 (on 32-row tiles) and 632 (fp32: the FMA
+    # kernel, past the 32-row tile)
+    routes = dict.fromkeys(flagship_train_grads.route_launches, 0)
     for n, s, bf16, with_w, scale, hidden in ((1024, 128, False, False, 1.0, 256),
                                               (1024, 128, True, False, 1.0, 256),
                                               (1024, 32, False, True, 0.1, 256),
@@ -534,23 +548,44 @@ def phase_train_kernel(dev):
                                               (333, 100, False, True, 1.0, 256),
                                               (333, 100, True, False, 0.5, 256),
                                               (257, 32, True, True, 1.0, 48),
+                                              (257, 32, False, False, 1.0, 48),
                                               (333, 100, False, True, 1.0, 100),
                                               (333, 100, True, False, 1.0, 100),
                                               (255, 128, False, False, 1.0, 512),
                                               (255, 100, True, True, 1.0, 512),
-                                              (255, 32, True, False, 1.0, 512)):
+                                              (255, 32, True, False, 1.0, 512),
+                                              (255, 32, False, True, 1.0, 632)):
         origs, dirs = random_rays(n, gen, dev)
         targets = torch.rand((n, 3), generator=gen, device=dev)
         cfg = flagship_cfg(bf16, hidden_dim=hidden)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
         ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
         args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5, scale, with_w)
+        before = dict(flagship_train_grads.route_launches)
         got = flagship_train_grads(*args)
         again = flagship_train_grads(*args)
         ref = flagship_train_grads_reference(*args)
         torch.cuda.synchronize()
-        route = f"{tile_rows(cfg, hidden, hidden // 2, train=True)}-row tiles" if bf16 else "FMA"
+        counted = {k: v - before[k] for k, v in flagship_train_grads.route_launches.items()}
+        kind, rows = train_route(cfg, hidden, hidden // 2)
+        require(counted[kind] == 2 and sum(counted.values()) == 2,
+                f"K4 hidden {hidden}: route launches {counted}, want 2 on {kind}")
+        for k, v in counted.items():
+            routes[k] += v
+        route = f"{kind}, {rows}-row tiles" if rows else kind
         tag = f"{n}x{s} {'bf16' if bf16 else 'fp32'} hidden {hidden} ({route}) loss_scale {scale}"
+        if kind == "tile_fp32" and fma_smem_bytes(cfg, hidden, hidden // 2) <= SMEM_LIMIT:
+            # the tile's forward adds as the FMA kernel does: rgb and weights
+            # bitwise its; only g W^T (3xTF32) moves the gradients
+            with mock.patch.object(tm, "train_route", lambda *_: ("fma", None)):
+                fma = flagship_train_grads(*args)
+            require(torch.equal(got[0], fma[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[4:], fma[4:])),
+                f"K4 {tag}: rgb or weights differ from the FMA kernel's")
+            gap = max(rel_norm(got[1][k], fma[1][k]) for k in got[1])
+            log(f"K4 {tag}: rgb{' and weights' if with_w else ''} bitwise the FMA kernel's; "
+                f"worst grad rel norm against it {gap:.3e}")
+            del fma
         flat = lambda out: [out[0], out[2], out[3], *out[1].values(), *out[4:]]
         require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
                 f"K4 {tag}: two launches differ")
@@ -575,6 +610,10 @@ def phase_train_kernel(dev):
             worst_abs_fp32 = max(worst_abs_fp32, max_abs)
         del got, again, ref
         torch.cuda.empty_cache()
+    log(f"K4 launches by route: {routes}")
+    require(train_route(flagship_cfg(False), 256, 128) == ("tile_fp32", 64),
+            "K4 fp32 at the flagship width: not on the 64-row tile")
+    require(all(v > 0 for v in routes.values()), f"K4: a route never launched: {routes}")
     return worst_abs_fp32
 
 
@@ -706,6 +745,8 @@ def phase_training(dev, workdir):
     require(state.step == 300, "dense run did not reach 300 steps")
     require(psnrs[-1] > psnrs[0] + 1.0 and psnrs[-1] > 10.0, f"dense PSNR {psnrs}")
     require(launches_dense["flagship_train"] >= 300, "dense: K4 not on every step")
+    require(launches_dense["flagship_train_tile_fp32"] == launches_dense["flagship_train"],
+            f"dense: K4 off the fp32 tile on some step: {launches_dense}")
 
     # other widths, each logging images through K2 from its first step: hidden
     # 100 fused in bf16 (tiles padded to 16), hidden 512 on the plain step in
@@ -736,6 +777,8 @@ def phase_training(dev, workdir):
     require(all(math.isfinite(v) for v in losses), "northstar: non-finite loss")
     for k in ("flagship_train", "render_fwd", "render_bwd"):
         require(launches_ns[k] >= steps, f"northstar: {k} launched {launches_ns[k]} < {steps}")
+    require(launches_ns["flagship_train_tile_bf16"] == launches_ns["flagship_train"],
+            f"northstar: K4 off the bf16 tile on some step: {launches_ns}")
     state, launches_resume = counted(ns + ["--max_steps", str(steps + 10), "--resume"])
     log(f"resume northstar: {state.step} steps, launches {launches_resume}")
     require(state.step == steps + 10 and launches_resume["flagship_train"] == 10,
@@ -773,8 +816,38 @@ def profile_step(step_fn, label: str) -> None:
     return wall, total, {e.key: e.self_device_time_total / 1e3 for e in events}
 
 
+def k4_kernels_ms(fn, label: str, calls: int = 10) -> dict:
+    """Device ms a call of each kernel of one K4 call (`torch.profiler`,
+    `calls` calls), by the kernel's name without return type, namespaces,
+    template and arguments: phase A, phase B (dW), the reduction and the
+    weight packing's PyTorch kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def short_name(name: str) -> str:
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        cuts = [i for i in (name.find("<"), name.find("(")) if i > 0]
+        return (name[:min(cuts)] if cuts else name).strip()
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            name = short_name(e.key)
+            ms[name] = ms.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    log(f"time K4 {label} by kernel, device ms a call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ms.items(), key=lambda kv: -kv[1])))
+    return ms
+
+
 def phase_train_timing(dev):
-    """Train step fused vs plain at 8192 rays, K3 and K4 alone vs plain."""
+    """Train step fused vs plain at 8192 rays, K3 and K4 alone vs plain (K4
+    fp32 also at the dense cell's 1024 rays, with each of its kernels' device
+    ms)."""
     import copy
 
     from nerf_experiments_tpu_torch.models import nerf_mlp
@@ -804,26 +877,32 @@ def phase_train_timing(dev):
             f"200 calls rotating {len(sets)} input sets (inputs from HBM): kernel {k:.4f} ms, "
             f"plain {p:.4f} ms")
         del sets
-    # K4 alone at the dense and north-star fine shapes
-    origs, dirs = random_rays(N_RAYS, gen, dev)
-    targets = torch.rand((N_RAYS, 3), generator=gen, device=dev)
-    for s, bf16 in ((128, False), (128, True), (32, True)):
+    # K4 alone at the dense and north-star fine shapes, and at the dense
+    # benchmark cell's 1024 rays
+    for n, s, bf16 in ((N_RAYS, 128, False), (1024, 128, False), (N_RAYS, 128, True),
+                       (N_RAYS, 32, True)):
+        origs, dirs = random_rays(n, gen, dev)
+        targets = torch.rand((n, 3), generator=gen, device=dev)
         cfg = flagship_cfg(bf16)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
-        ts, te = sampling.sample_stratified(None, N_RAYS, s, 2.0, FAR, "equidistant", device=dev)
+        ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
         args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5)
         torch.cuda.reset_peak_memory_stats()
-        k = cuda_time_ms(lambda: flagship_train_grads(*args), iters=3, warmup=1)
+        k = cuda_time_ms(lambda: flagship_train_grads(*args), iters=3 if n == N_RAYS else 10,
+                         warmup=1)
         mem_k = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         p = cuda_time_ms(lambda: flagship_train_grads_reference(*args), iters=3, warmup=1)
         mem_p = torch.cuda.max_memory_allocated() / 2**30
         torch.cuda.empty_cache()
-        tag = f"K4_S{s}_{'bf16' if bf16 else 'fp32'}"
+        dtype = "bf16" if bf16 else "fp32"
+        tag = f"K4_S{s}_{dtype}" if n == N_RAYS else f"K4_{n}_S{s}_{dtype}"
         times[tag] = (k, p)
-        log(f"time K4 flagship_train {N_RAYS}x{s} {'bf16' if bf16 else 'fp32'}: kernel "
-            f"{k:.3f} ms (peak {mem_k:.1f} GiB), plain {p:.3f} ms (peak {mem_p:.1f} GiB)")
+        log(f"time K4 flagship_train {n}x{s} {dtype}: kernel {k:.3f} ms (peak {mem_k:.1f} "
+            f"GiB), plain {p:.3f} ms (peak {mem_p:.1f} GiB)")
+        if not bf16:  # each phase's device time, by kernel
+            k4_kernels_ms(lambda: flagship_train_grads(*args), f"{n}x{s} {dtype}")
     # the train step at 8192 rays, fused vs plain, in turns
     for name, _, cfg in train_configs():
         params = barf_sys.init(torch.Generator().manual_seed(8), cfg).to(dev)
@@ -2436,13 +2515,19 @@ def launch_counters() -> dict:
 
 def counted_run(main, argv):
     """`main(argv)` with every count set to 0 just before and read just
-    after: (its result, {kernel: launches})."""
+    after: (its result, {kernel: launches}), K4's also by route
+    (`flagship_train_<route>`, from `flagship_train_grads.route_launches`)."""
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    routes = counters["flagship_train"].route_launches
+    for k in routes:
+        routes[k] = 0
     out = main(argv)
     torch.cuda.synchronize()
-    return out, {k: fn.launches for k, fn in counters.items()}
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches.update({f"flagship_train_{k}": v for k, v in routes.items()})
+    return out, launches
 
 
 def add_launches(total: dict, launches: dict) -> dict:
@@ -3963,7 +4048,10 @@ def main() -> int:
          "launches": train_launches["flagship_train"] + slice_launches["flagship_train"]
          + mesh_launches["flagship_train"],
          "max_abs_err": k4_err,
-         "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1]},
+         "dense_run_launches_tile_fp32": train_launches["flagship_train_tile_fp32"],
+         "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1],
+         "ms_1024": train_times["K4_1024_S128_fp32"][0],
+         "plain_ms_1024": train_times["K4_1024_S128_fp32"][1]},
         {"name": "garf_train", "route": "cuda",
          "source": "nerf_experiments_tpu_torch/csrc/garf_train.cuh",
          "replaces": "nerf_experiments_tpu/ops/garf_megakernel.py:82",

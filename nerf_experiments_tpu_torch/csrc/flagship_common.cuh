@@ -1,13 +1,15 @@
 // Device helpers shared by the flagship BARF radiance kernels
 // (`flagship_render.cu`: K2, which K11 launches too; `flagship_train.cu`: K4),
 // the GARF kernels (`garf_common.cuh`: K5, K6), the fused MLP chain
-// (`fused_mlp.cu`: K9, K10) and, for the FMA helper `accumulate`, K4's fp32
-// route: there one thread owns an output column and keeps kRows row
+// (`fused_mlp.cu`: K9, K10) and, for the FMA helper `accumulate`, K4's FMA
+// kernel: there one thread owns an output column and keeps kRows row
 // accumulators in registers, so one weight load feeds kRows FMAs.
 //
-// K2, K4 (bf16), K5, K6, K9 (bf16) and K10 run their matrix products on the
-// tensor cores through the tile at the end of this file (`tile_gemm`; the
-// GARF kernels and the chain bring their own epilogues and row tiles):
+// K2, K4 (bf16; in fp32 its g W^T), K5, K6, K9 (bf16) and K10 run their
+// matrix products on the tensor cores through the tile at the end of this
+// file (`tile_gemm`; the GARF kernels and the chain bring their own
+// epilogues and row tiles; the fp32 forwards of K4 and K9 run on the CUDA
+// cores over the same tiles, `fma_tile.cuh`):
 //   * row tile: a block of kThreads = 256 threads (8 warps) owns kR = 64 sample
 //     rows; rays are packed kR / S to a block when S <= kR, so the north-star
 //     shape (S = 32) fills a tile with two rays. Layers wide enough that a
@@ -305,7 +307,8 @@ struct Mma<false> {
 };
 
 // `tile_gemm`'s kFlush for the fp32 routes that need it (the GARF kernels, K up
-// to 1024, and the fused MLP chain's backward): each 8-k-step chain of the
+// to 1024, and the g W^T of the fused MLP chain's and the flagship train
+// kernel's backward): each 8-k-step chain of the
 // tensor cores' accumulator added into the result by fp32 adds.
 template <bool kBf16>
 constexpr int kFlushK = kBf16 ? 0 : 8;

@@ -55,6 +55,7 @@
 //     tolerance in K5), split over the rows into partials (`fused_mlp.dw_splits`,
 //     from the shapes alone) added in a fixed order. No atomics: two launches
 //     give bitwise-equal gradients, and rows past the end add nothing.
+#include "fma_tile.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -203,161 +204,8 @@ __device__ typename Mma<kBf16>::ET* forward_hidden(const TileChain& c,
 }
 
 // ---- fp32: the forward on the CUDA cores, in the order of a plain GEMM ----
-//
-// Every z[r][c] is (fmaf(in[r][0], W[0][c], 0) -> fmaf(in[r][1], W[1][c], .)
-// -> ...) + b[c]: the products added in the order k = 0, 1, ... from 0, then
-// the bias, as cuBLAS's fp32 SGEMM without split-K and then torch's bias add
-// compute it. So each ReLU is decided as the plain chain decides it, which
-// fp32's gates need: 3xTF32 on the tensor cores decides a few units in 10^7
-// the other way (PERF.md section 6), and each such unit moves a row's
-// gradient by its whole cotangent. A thread owns R rows x 8 columns (R =
-// 8, or 4 where 8 leaves threads idle; the warp's lanes side by side along
-// the columns, so the activations they read are one broadcast), up to 64
-// FMAs for 8 loads; the last N % 8 columns go one column a thread over 8
-// rows. W streams through shared memory (the tensor-core route's ring
-// space, unused in this forward) in chunks of up to 16 rows, two in flight
-// by cp.async, its row stride round4(N) as `fused_mlp.pack_chain` pads it,
-// so every copy and read is a float4.
-constexpr int kFmaC = 8;
-constexpr int kWRows = 16;  // W rows a staged chunk, at most
-
-// W rows a chunk for outputs ldw wide in `bytes` of staging (two chunks), a
-// multiple of 4: at least 8 in the ring's 49,152 bytes, as a block's 227 KB
-// hold no fp32 tile wider than 712 columns.
-__device__ inline int fma_chunk_rows(int ldw, size_t bytes) {
-  const int rows = static_cast<int>(bytes / (2 * sizeof(float) * ldw)) & ~3;
-  return rows < kWRows ? rows : kWRows;
-}
-
-// acc[r][j] += in[r0 + r][k] W[k][c0 + j] for k = k0, k0 + 1, ... < k1, in
-// that order; w holds W's rows k0.. (row stride ldw, c0 a multiple of 8
-// when C = 8), k0 a multiple of 4.
-template <int R, int C>
-__device__ __forceinline__ void fma_block(const float* in, int ld, int k0, int k1,
-                                          const float* w, int ldw, int r0, int c0,
-                                          float (&acc)[R][C]) {
-  const float* a = in + r0 * ld;
-  auto row = [&](float (&v)[C], int k) {
-    const float* p = w + (k - k0) * ldw + c0;
-    if constexpr (C == 8) {
-      const float4 lo = *reinterpret_cast<const float4*>(p);
-      const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < C; ++j) v[j] = p[j];
-    }
-  };
-  auto step4 = [&](int k) {  // k, k + 1, k + 2, k + 3
-    float v[4][C];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) row(v[q], k + q);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(a + r * ld + k);
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        acc[r][j] = fmaf(x.x, v[0][j], acc[r][j]);
-        acc[r][j] = fmaf(x.y, v[1][j], acc[r][j]);
-        acc[r][j] = fmaf(x.z, v[2][j], acc[r][j]);
-        acc[r][j] = fmaf(x.w, v[3][j], acc[r][j]);
-      }
-    }
-  };
-  if (k1 - k0 == kWRows) {  // a whole chunk, unrolled
-#pragma unroll
-    for (int q = 0; q < kWRows; q += 4) step4(k0 + q);
-    return;
-  }
-  const int k4 = k0 + ((k1 - k0) & ~3);
-  for (int k = k0; k < k4; k += 4) step4(k);
-  for (int k = k4; k < k1; ++k) {
-    float v[C];
-    row(v, k);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float x = a[r * ld + k];
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[r][j] = fmaf(x, v[j], acc[r][j]);
-    }
-  }
-}
-
-template <int R, int C>
-__device__ __forceinline__ void zero(float (&acc)[R][C]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[r][j] = 0.f;
-}
-
-// One layer for a kR-row tile whose input is in the shared tile `in` (row
-// stride ld, K columns), W (K, N) with the row stride round4(N) in global
-// memory, staged through `stage` (`stage_bytes`): out(r0, c0, acc) receives
-// each thread's block of sums before the bias, acc[r][j] for rows r0 + r and
-// columns c0 + j < N. Every thread of the block calls it; it ends with a
-// barrier.
-template <int kR, int R, typename Out>
-__device__ void fma_items(const float* in, int ld, int K, const float* __restrict__ W, int N,
-                          float* stage, size_t stage_bytes, const Out& out) {
-  const int ldw = round4(N), CG = N / kFmaC, nt = N - CG * kFmaC;
-  const int wk = fma_chunk_rows(ldw, stage_bytes);
-  const int n_main = kR / R * CG, n_items = n_main + kR / 8 * nt;
-  const int chunks = (K + wk - 1) / wk;
-  // chunk q of W's rows into stage buffer q & 1: one cp.async group a chunk
-  auto issue = [&](int q) {
-    if (q < chunks) {
-      const int k0 = q * wk, n4 = (min(K, k0 + wk) - k0) * ldw / 4;
-      float* dst = stage + (q & 1) * wk * ldw;
-      const float* src = W + static_cast<size_t>(k0) * ldw;
-      for (int e = threadIdx.x; e < n4; e += blockDim.x)
-        cp_async(reinterpret_cast<float4*>(dst) + e, reinterpret_cast<const float4*>(src) + e);
-    }
-    cp_async_commit();
-  };
-  for (int base = 0; base < n_items; base += blockDim.x) {
-    const int item = base + threadIdx.x;
-    const bool is_main = item < n_main, is_tail = !is_main && item < n_items;
-    int r0 = 0, c0 = 0;
-    if (is_main) {
-      r0 = item / CG * R;
-      c0 = item % CG * kFmaC;
-    } else if (is_tail) {
-      r0 = (item - n_main) / nt * 8;
-      c0 = CG * kFmaC + (item - n_main) % nt;
-    }
-    float acc[R][kFmaC], tacc[8][1];
-    zero(acc);
-    zero(tacc);
-    issue(0);
-    for (int q = 0; q < chunks; ++q) {
-      issue(q + 1);
-      cp_async_wait<1>();  // chunk q has landed (this thread's part) ...
-      __syncthreads();     // ... and every thread's
-      const int k0 = q * wk, k1 = min(K, k0 + wk);
-      const float* w = stage + (q & 1) * wk * ldw;
-      if (is_main)
-        fma_block(in, ld, k0, k1, w, ldw, r0, c0, acc);
-      else if (is_tail)
-        fma_block(in, ld, k0, k1, w, ldw, r0, c0, tacc);
-      __syncthreads();  // buffer q & 1 is written again by chunk q + 2
-    }
-    if (is_main)
-      out(r0, c0, acc);
-    else if (is_tail)
-      out(r0, c0, tacc);
-  }
-}
-
-template <int kR, typename Out>
-__device__ void fma_layer(const float* in, int ld, int K, const float* __restrict__ W, int N,
-                          float* stage, size_t stage_bytes, const Out& out) {
-  if (kR / 8 * (N / kFmaC) >= kThreads)
-    fma_items<kR, 8>(in, ld, K, W, N, stage, stage_bytes, out);
-  else
-    fma_items<kR, 4>(in, ld, K, W, N, stage, stage_bytes, out);
-}
+// (`fma_layer` of fma_tile.cuh; W's rows padded to round4(N) by
+// `fused_mlp.pack_chain`)
 
 // A hidden layer's outputs: relu(acc + b) into the shared tile.
 struct ReluOut {
@@ -368,9 +216,10 @@ struct ReluOut {
   __device__ void operator()(int r0, int c0, const float (&acc)[R][C]) const {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      const float bj = __ldg(bias + c0 + j);
+      const int col = fma_col<C>(c0, j);
+      const float bj = __ldg(bias + col);
 #pragma unroll
-      for (int r = 0; r < R; ++r) out[(r0 + r) * ld + c0 + j] = fmaxf(acc[r][j] + bj, 0.f);
+      for (int r = 0; r < R; ++r) out[(r0 + r) * ld + col] = fmaxf(acc[r][j] + bj, 0.f);
     }
   }
 };
@@ -385,10 +234,11 @@ struct YOut {
   __device__ void operator()(int r0, int c0, const float (&acc)[R][C]) const {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      const float bj = __ldg(bias + c0 + j);
+      const int col = fma_col<C>(c0, j);
+      const float bj = __ldg(bias + col);
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        if (r0 + r < rows) y[static_cast<size_t>(r0 + r) * N + c0 + j] = acc[r][j] + bj;
+        if (r0 + r < rows) y[static_cast<size_t>(r0 + r) * N + col] = acc[r][j] + bj;
     }
   }
 };

@@ -12,17 +12,21 @@ Same name as the JAX package's module, whose `flagship_render` and
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. The render kernel runs its products on the tensor cores
-in both compute types, the train kernel in bf16; they take each layer's B
-operand packed in fragment order (`pack_b`): bf16, or fp32 split into TF32
-hi / lo pairs for the 3xTF32 products. The train kernel's fp32 route keeps
-FMA loops on the CUDA cores and takes the weights as they are and
-transposed.
+in both compute types; they take each layer's B operand packed in fragment
+order (`pack_b`): bf16, or fp32 split into TF32 hi / lo pairs for the 3xTF32
+products. The train kernel has three routes (`train_route`): the bf16 tile
+(every product on the tensor cores), the fp32 tile (the forward on the CUDA
+cores in the FMA kernel's order of adds, with W as it is at a row stride of
+a multiple of 4; the backward's g W^T as 3xTF32 on the tensor cores) and,
+for fp32 widths too wide for a tile whose block still fits, the FMA kernel
+(W as it is and transposed). `flagship_train_grads.route_launches` counts
+the launches of each.
 
-The tensor-core kernels serve any hidden width D and colour width C (padded
-to 16 inside); their row tile is 64 sample rows, or 32 where a 64-row tile's
+The tile kernels serve any hidden width D and colour width C (padded to 16
+inside); their row tile is 64 sample rows, or 32 where a 64-row tile's
 shared memory would pass the block's 227 KB (`tile_rows`). Wider layers
-than a 32-row tile holds (D > ~600) take no kernel: `kernels_fit` is False
-and `systems.barf.can_fuse_train_step` / `use_fused_render` send such
+than a 32-row render tile holds (D > ~600) take no kernel: `kernels_fit` is
+False and `systems.barf.can_fuse_train_step` / `use_fused_render` send such
 configs down the plain route.
 """
 from __future__ import annotations
@@ -69,26 +73,31 @@ def _round4(x: int) -> int:
 def tile_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, rows: int,
                     train: bool = False) -> int:
     """Shared memory of a block of the render kernel (train=False) or of the
-    train kernel's tensor-core route (train=True, bf16) with a `rows`-row
-    tile: `TileSmem` (two activation tiles, the two encodings, the warps'
-    weight rings) and the kernel's fp32 arrays (`render_floats`,
-    `train_floats` in csrc/)."""
+    train kernel's tile route (train=True) with a `rows`-row tile: `TileSmem`
+    (two activation tiles, the two encodings, the warps' weight rings) and
+    the kernel's fp32 arrays (`render_floats`, `train_floats` in csrc/). The
+    fp32 train tile keeps its cotangents in its own tiles, so its fp32 arrays
+    are the compositing's, the geometry gradients, the lanes' rgb sums and a
+    layer's ReLU mask words."""
     lp, ld = cfg.position_encoder.levels, cfg.direction_encoder.levels
     P, Q = 3 + 6 * lp, 3 + 6 * ld
     bf16 = is_bf16(cfg)
     pad, elem, ring = (8, 2, 8 * 4 * 4 * 32 * 8) if bf16 else (4, 4, 8 * 3 * 4 * 32 * 16)
     ldb = _round16(max(D + 1, C)) + pad
     tiles = _round16(rows * (2 * ldb + _round16(P) + _round16(Q) + 2 * pad) * elem)
-    if train:
+    if train and bf16:
         floats = (rows * (6 + 16 + _round16(P) + _round16(Q) + 6 + max(_round16(D), _round16(C))
                           + 4) + _round4(lp + ld))
+    elif train:
+        floats = rows * (6 + 16 + 6) + 3 * 32 + rows // 32 * max(D, C) + _round4(lp + ld)
     else:
         floats = rows * (6 + 8) + _round4(lp + ld)
     return tiles + ring + 4 * floats
 
 
 def fma_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> int:
-    """Shared memory of a block of the train kernel's fp32 (FMA) route."""
+    """Shared memory of a block of the train kernel's FMA kernel (fp32 widths
+    too wide for a tile)."""
     lp, ld = cfg.position_encoder.levels, cfg.direction_encoder.levels
     P, Q = 3 + 6 * lp, 3 + 6 * ld
     return 4 * (_round4(lp + ld) + 2 * 96 + 2 * 32
@@ -96,12 +105,29 @@ def fma_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> int:
 
 
 def tile_rows(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, train: bool = False) -> Optional[int]:
-    """The row tile of the render kernel (or the train kernel's tensor-core
-    route): the first of `TILE_ROWS` whose block fits in `SMEM_LIMIT`, else
-    None (no kernel for these widths)."""
+    """The row tile of the render kernel (or the train kernel's tile route):
+    the first of `TILE_ROWS` whose block fits in `SMEM_LIMIT`, else None (no
+    tile for these widths)."""
     for rows in TILE_ROWS:
         if tile_smem_bytes(cfg, D, C, rows, train) <= SMEM_LIMIT:
             return rows
+    return None
+
+
+TRAIN_ROUTES = ("tile_bf16", "tile_fp32", "fma")
+
+
+def train_route(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> Optional[Tuple[str, int]]:
+    """The train kernel's route for these widths in cfg's compute type, from
+    the shared memory its block needs: ("tile_bf16" or "tile_fp32", the row
+    tile), ("fma", None) for fp32 widths whose 32-row tile does not fit but
+    whose FMA block does, else None (no kernel: the plain route)."""
+    bf16 = is_bf16(cfg)
+    rows = tile_rows(cfg, D, C, train=True)
+    if rows is not None:
+        return ("tile_bf16" if bf16 else "tile_fp32"), rows
+    if not bf16 and fma_smem_bytes(cfg, D, C) <= SMEM_LIMIT:
+        return "fma", None
     return None
 
 
@@ -111,11 +137,7 @@ def kernels_fit(cfg: nerf_mlp.NerfMLPConfig, train: bool = False) -> bool:
     D, C = cfg.hidden_dim, cfg.hidden_dim // 2
     if tile_rows(cfg, D, C) is None:
         return False
-    if not train:
-        return True
-    if is_bf16(cfg):
-        return tile_rows(cfg, D, C, train=True) is not None
-    return fma_smem_bytes(cfg, D, C) <= SMEM_LIMIT
+    return not train or train_route(cfg, D, C) is not None
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -439,12 +461,12 @@ def _train_layout(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
     return P + Q + 2 * L * D + C, 2 * L * D + 1 + C + 3, (2 * L - 1) * D + C
 
 
-def _mask_halves(n_rays: int, n_samples: int, bf16: bool, rows: int = TILE_ROWS[0]) -> int:
-    """32-row groups of the ReLU mask words. bf16 (tensor-core route): the
-    32-row parts of the row tiles, a block taking rows // S rays (one when S >
-    rows) in ceil(rays * S / rows) tiles of `rows` rows; fp32 (FMA route):
-    32-row chunks of each ray."""
-    if not bf16:
+def _mask_halves(n_rays: int, n_samples: int, rows: Optional[int]) -> int:
+    """32-row groups of the ReLU mask words. The tile route (`rows`, its row
+    tile): the 32-row parts of the row tiles, a block taking rows // S rays
+    (one when S > rows) in ceil(rays * S / rows) tiles of `rows` rows; the
+    FMA kernel (rows None): 32-row chunks of each ray."""
+    if rows is None:
         return n_rays * math.ceil(n_samples / 32)
     rays = max(1, rows // n_samples)
     return math.ceil(n_rays / rays) * math.ceil(rays * n_samples / rows) * (rows // 32)
@@ -455,12 +477,25 @@ def train_workspace_bytes(cfg: nerf_mlp.NerfMLPConfig, n_rays: int, n_samples: i
     """Device memory `flagship_train_grads` allocates for its workspaces:
     activations (compute type), cotangents and the compositing record (fp32)
     per sample row, and ReLU mask words per 32 rows (`_mask_halves`, with
-    the row tile of `tile_rows`)."""
+    the route of `train_route`; widths with no route are counted as a
+    64-row tile)."""
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
-    bf16 = is_bf16(cfg)
-    rows = (tile_rows(cfg, D, C, train=True) if bf16 else None) or TILE_ROWS[0]
-    return (n_rays * n_samples * (act_w * (2 if bf16 else 4) + (cot_w + 6) * 4)
-            + _mask_halves(n_rays, n_samples, bf16, rows) * mask_w * 4)
+    rows = (train_route(cfg, D, C) or (None, TILE_ROWS[0]))[1]
+    return (n_rays * n_samples * (act_w * (2 if is_bf16(cfg) else 4) + (cot_w + 6) * 4)
+            + _mask_halves(n_rays, n_samples, rows) * mask_w * 4)
+
+
+def _fp32_tile_weights(layers, last: int, D: int, dev):
+    """The fp32 tile's forward weights: every layer's W (in, out) fp32 with
+    its row stride padded to a multiple of 4 (the CUDA cores' forward reads
+    rows as float4), the last segment layer's without its density column,
+    and that column W[:, D]."""
+    ws = [l.w.detach().to(dev, torch.float32) for l in layers]
+    w_density = ws[last][:, D].contiguous()
+    ws[last] = ws[last][:, :D]
+    fwd = [w if w.shape[1] % 4 == 0 and w.is_contiguous() and w.data_ptr() % 16 == 0
+           else torch.nn.functional.pad(w, (0, -w.shape[1] % 4)).contiguous() for w in ws]
+    return fwd, w_density
 
 
 def flagship_train_grads(
@@ -499,14 +534,21 @@ def flagship_train_grads(
     bf16 = is_bf16(cfg)
     D = params.segments[0].layers[0].w.shape[1]
     C = params.color[0].w.shape[1]
-    tile = tile_rows(cfg, D, C, train=True) if bf16 else 0
-    if tile is None or (not bf16 and fma_smem_bytes(cfg, D, C) > SMEM_LIMIT):
+    route = train_route(cfg, D, C)
+    if route is None:
         raise ValueError(f"the flagship train kernel has no block for hidden width {D} "
                          f"(colour {C}): such configs take the plain route")
+    name, tile = route
     lib = cuda_build.library()
-    if bf16:  # the tensor-core route: packed B operands
+    if name == "tile_bf16":  # packed B operands
         wf, wb, bs, w_density = packed_weights(params, cfg, dev, backward=True)
-    else:  # the FMA route: W (in, out) and W^T
+    elif name == "tile_fp32":  # W as it is for the CUDA cores, W^T packed (TF32 hi / lo)
+        last = 2 * cfg.n_hidden + 1
+        wf, w_density = _fp32_tile_weights(layers, last, D, dev)
+        wb = pack_layers([l.w for l in layers], _layer_parts(cfg, D, C), last, False, True,
+                         dev, forward=False)[1]
+        bs = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
+    else:  # the FMA kernel: W (in, out) and W^T
         wf, bs = device_weights(layers, dev, False)
         wb, w_density = [w.t().contiguous() for w in wf], None
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
@@ -519,7 +561,7 @@ def flagship_train_grads(
                       device=dev)
     cot = torch.empty((rows, cot_w), **f32)
     aux = torch.empty((rows, 6), **f32)
-    masks = torch.empty((_mask_halves(n, s, bf16, tile), mask_w), dtype=torch.int32,
+    masks = torch.empty((_mask_halves(n, s, tile), mask_w), dtype=torch.int32,
                         device=dev)
     part = torch.empty((splits, n_grads), **f32)
     flat = torch.empty((n_grads,), **f32)
@@ -533,7 +575,7 @@ def flagship_train_grads(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
             targets.data_ptr(), pointers(wf), pointers(wb), pointers(bs),
             None if w_density is None else w_density.data_ptr(), len(layers), int(bf16),
-            tile, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
+            tile or 0, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             2.0 * float(loss_scale) / (n * 3.0), act.data_ptr(), cot.data_ptr(),
             aux.data_ptr(), masks.data_ptr(), act_w, cot_w, part.data_ptr(), splits,
@@ -542,6 +584,7 @@ def flagship_train_grads(
             None if weights is None else weights.data_ptr(), stream)
     cuda_build.check(code, "netpu_flagship_train")
     flagship_train_grads.launches += 1
+    flagship_train_grads.route_launches[name] += 1
 
     # flat = every dW (in, out) in layer order, then every db
     grads, w_off, b_off = {}, 0, sum(l.w.numel() for l in layers)
@@ -555,3 +598,5 @@ def flagship_train_grads(
 
 
 flagship_train_grads.launches = 0
+# launches by route (`train_route`): a run shows which route each width took
+flagship_train_grads.route_launches = dict.fromkeys(TRAIN_ROUTES, 0)

@@ -11,10 +11,15 @@ them against their plain versions on the H100):
   * a torch emulation of the kernels' 3xTF32 products in the plain forward
     against the JAX fp32 kernel, at the fp32 tolerance `chip_smoke.py` holds
     the kernels to (1e-4 abs): the split reaches it before any chip run;
+  * an emulation of the train kernel's fp32 tile (the forward in fp32, g W^T
+    as 3xTF32, dW in fp32) against the JAX fp32 train kernel, by relative
+    norm at `chip_smoke.TOL_K4_FP32` (1e-4);
   * `train_workspace_bytes` pinned to the workspace layout;
   * widths: hidden and colour widths that are not multiples of 16 (packed
     zero-padded, read back against the JAX kernels), the row tile each width
-    takes and the shared memory behind it (`tile_rows`), and the configs too
+    takes and the shared memory behind it (`tile_rows`), the train kernel's
+    route at each width (`train_route`: the bf16 or fp32 tile, the FMA
+    kernel, none) and its per-route launch counter, and the configs too
     wide for any tile routed to the plain step (`can_fuse_train_step`);
   * `packed_weights`' one gather against `pack_b` per operand, and the render
     kernel's cache of packed weights (`render_weights`);
@@ -259,8 +264,9 @@ def flagship_tcfg(bf16, hidden_dim=256):
 
 
 @pytest.mark.parametrize("bf16,n,s,want", [
-    # fp32, the FMA route: mask words per 32-row chunk of each ray
+    # fp32, the 64-row tile: 8192 x 128 is one ray a block in 2 tiles
     (False, 8192, 128, 23_286_775_808),
+    # ragged S = 100: one ray a block, 2 tiles (64 + 36 rows), 4 halves a ray
     (False, 1000, 100, 2_229_312_000),
     # bf16, the tensor-core route: 8192 x 128 is one ray a block in 2 tiles
     (True, 8192, 128, 17_460_887_552),
@@ -274,12 +280,10 @@ def test_train_workspace_bytes_is_pinned(bf16, n, s, want):
     cfg = flagship_tcfg(bf16)
     act_w, cot_w, mask_w = ttrain._train_layout(cfg, 256, 128)
     assert (act_w, cot_w, mask_w) == (2778, 2692, 2432)
-    if bf16:
-        rays = max(1, 64 // s)
-        halves = -(-n // rays) * -(-(rays * s) // 64) * 2
-    else:
-        halves = n * -(-s // 32)
-    assert ttrain._mask_halves(n, s, bf16) == halves
+    assert ttrain.tile_rows(cfg, 256, 128, train=True) == 64
+    rays = max(1, 64 // s)
+    halves = -(-n // rays) * -(-(rays * s) // 64) * 2
+    assert ttrain._mask_halves(n, s, 64) == halves
     act_bytes = 2 if bf16 else 4
     assert ttrain.train_workspace_bytes(cfg, n, s, 256, 128) == \
         n * s * (act_w * act_bytes + (cot_w + 6) * 4) + halves * mask_w * 4 == want
@@ -375,7 +379,7 @@ def test_train_workspace_bytes_at_32_row_tiles(n, s, want):
     act_w, cot_w, mask_w = ttrain._train_layout(cfg, 512, 256)
     assert ttrain.tile_rows(cfg, 512, 256, train=True) == 32
     halves = n * -(-s // 32)  # one ray a block, one mask word a column per 32 rows
-    assert ttrain._mask_halves(n, s, True, 32) == halves
+    assert ttrain._mask_halves(n, s, 32) == halves
     assert ttrain.train_workspace_bytes(cfg, n, s, 512, 256) == \
         n * s * (act_w * 2 + (cot_w + 6) * 4) + halves * mask_w * 4 == want
 
@@ -398,3 +402,172 @@ def test_bf16_linear_cpu_path_is_unchanged():
     got = tcommon.linear_apply(layer, x, torch.bfloat16)
     want = (x.bfloat16().float() @ layer.w.bfloat16().float() + layer.b).bfloat16()
     assert torch.equal(got, want)
+
+
+class _Tf32x3Backward(torch.autograd.Function):
+    """x @ W + b in fp32 whose input cotangent g W^T is the kernels' 3xTF32
+    product (g = hi + lo and W = hi' + lo', each split to nearest, g W^T ~
+    lo hi'^T + hi lo'^T + hi hi'^T); dW = x^T g and db in fp32, as the fp32
+    tile's phase B sums them."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return x @ w + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gh = ttrain.tf32_round(g)
+        gl = ttrain.tf32_round(g - gh)
+        wh = ttrain.tf32_round(w)
+        wl = ttrain.tf32_round(w - wh)
+        dx = (gl @ wh.t() + gh @ wl.t()) + gh @ wh.t()
+        return dx, x.t() @ g, g.sum(0)
+
+
+def fp32_tile_linear(layer, x, compute_dtype=None):
+    """`linear_apply` as the train kernel's fp32 tile computes it."""
+    assert compute_dtype is None
+    flat = x.reshape(-1, x.shape[-1])
+    return _Tf32x3Backward.apply(flat, layer.w, layer.b).reshape(*x.shape[:-1], -1)
+
+
+def rel_norm(a, b) -> float:
+    a, b = np.asarray(a.detach().float(), np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("hidden_dim,n_hidden", [(256, 4), (48, 1), (100, 2)])
+def test_fp32_tile_emulation_meets_the_fp32_tolerance_against_jax(hidden_dim, n_hidden):
+    """The fp32 tile's numbers before any chip run: its forward is the plain
+    fp32 one (the kernel adds in the FMA kernel's order), only g W^T runs as
+    3xTF32. Held to the JAX fp32 train kernel by relative norm at
+    `chip_smoke.TOL_K4_FP32`, as phase 7 holds the kernel on the card."""
+    jcfg, tcfg = cfgs(n_hidden=n_hidden, hidden_dim=hidden_dim)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jmlp.init(jax.random.PRNGKey(hidden_dim), jcfg))
+    params = tmlp.from_numpy(tree, tcfg)
+    o, d, ts, te, targets = inputs(4, 16, seed=hidden_dim)
+    a_pos, a_dir = 3.5, 1.5
+    want = jtrain_kernel(jax.tree_util.tree_map(jnp.asarray, tree), jcfg,
+                         *map(jnp.asarray, (o, d, ts, te, targets)), a_pos, a_dir,
+                         tile_rays=4, interpret=True)
+    args = (params, tcfg, *map(torch.as_tensor, (o, d, ts, te, targets)), a_pos, a_dir)
+    with mock.patch.object(tmlp, "linear_apply", fp32_tile_linear):
+        got = ttrain.flagship_train_grads_reference(*args)
+    plain = ttrain.flagship_train_grads_reference(*args)
+    assert torch.equal(got[0], plain[0])  # the forward is the plain fp32 one
+    assert not all(torch.equal(got[1][k], plain[1][k]) for k in plain[1])  # g W^T took effect
+    errs = {"rgb": rel_norm(got[0], want[0]), "d_origs": rel_norm(got[2], want[2]),
+            "d_dirs": rel_norm(got[3], want[3])}
+    for i, seg in enumerate(want[1]["segments"]):
+        for j, layer in enumerate(seg["layers"]):
+            for k in ("w", "b"):
+                errs[f"segments.{i}.layers.{j}.{k}"] = rel_norm(
+                    got[1][f"segments.{i}.layers.{j}.{k}"], layer[k])
+    for c, layer in enumerate(want[1]["color"]):
+        for k in ("w", "b"):
+            errs[f"color.{c}.{k}"] = rel_norm(got[1][f"color.{c}.{k}"], layer[k])
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-4, (worst, errs[worst])
+
+
+def test_fp32_train_tile_smem_is_pinned():
+    """`train_floats` of csrc/flagship_train.cu for fp32: the tiles and rings
+    of `TileSmem<false>` and 28 floats a row, 96 lanes' sums, a mask word a
+    (32-row part, column) and the window. The flagship width fits a 64-row
+    tile; hidden 512 a 32-row one."""
+    f32 = flagship_tcfg(False)
+    assert ttrain.tile_smem_bytes(f32, 256, 128, 64, train=True) == 226_752
+    assert ttrain.tile_rows(f32, 256, 128, train=True) == 64
+    wide = flagship_tcfg(False, 512)
+    assert ttrain.tile_smem_bytes(wide, 512, 256, 64, train=True) > ttrain.SMEM_LIMIT
+    assert ttrain.tile_smem_bytes(wide, 512, 256, 32, train=True) == 204_736
+    assert ttrain.tile_rows(wide, 512, 256, train=True) == 32
+
+
+@pytest.mark.parametrize("hidden,fp32,bf16,fused", [
+    (48, ("tile_fp32", 64), ("tile_bf16", 64), True),
+    (100, ("tile_fp32", 64), ("tile_bf16", 64), True),
+    (256, ("tile_fp32", 64), ("tile_bf16", 64), True),   # the flagship width
+    (272, ("tile_fp32", 32), ("tile_bf16", 64), True),
+    (512, ("tile_fp32", 32), ("tile_bf16", 32), True),
+    (620, ("tile_fp32", 32), ("tile_bf16", 32), True),
+    # fp32 past the 32-row tile: the FMA kernel, which the fused step reaches
+    # up to the render tile's last width (639)
+    (624, ("fma", None), ("tile_bf16", 32), True),
+    (639, ("fma", None), ("tile_bf16", 32), True),
+    (640, ("fma", None), ("tile_bf16", 32), False),
+    (860, None, None, False),
+    (1024, None, None, False),
+])
+def test_train_route_by_width(hidden, fp32, bf16, fused):
+    f32, b16 = flagship_tcfg(False, hidden), flagship_tcfg(True, hidden)
+    C = hidden // 2
+    assert ttrain.train_route(f32, hidden, C) == fp32
+    assert ttrain.train_route(b16, hidden, C) == bf16
+    if fp32 == ("fma", None):
+        assert ttrain.fma_smem_bytes(f32, hidden, C) <= ttrain.SMEM_LIMIT
+        assert ttrain.tile_smem_bytes(f32, hidden, C, 32, train=True) > ttrain.SMEM_LIMIT
+    cfg = tbarf.BarfConfig(radiance=f32, n_training_images=2, samples_per_ray_radiance=8)
+    assert tbarf.can_fuse_train_step(cfg) == fused
+
+
+def test_route_launches_count_each_route():
+    """One counter a route that `train_route` can name; the plain version
+    (CPU tensors) launches nothing, so counts nothing."""
+    counts = ttrain.flagship_train_grads.route_launches
+    assert tuple(counts) == ttrain.TRAIN_ROUTES == ("tile_bf16", "tile_fp32", "fma")
+    before = dict(counts)
+    _, tcfg = cfgs(hidden_dim=32)
+    params = tmlp.init(torch.Generator().manual_seed(0), tcfg)
+    o, d, ts, te, targets = inputs(2, 8, seed=0)
+    ttrain.flagship_train_grads(params, tcfg, *map(torch.as_tensor, (o, d, ts, te, targets)),
+                                3.0, 1.5)
+    assert ttrain.flagship_train_grads.route_launches == before
+
+
+@pytest.mark.parametrize("n,s,rows,halves", [
+    (1023, 32, 64, 1024),  # 2 rays a block: the last block's second ray is absent
+    (1024, 32, 64, 1024),
+    (333, 100, 64, 1332),  # one ray a block, 2 tiles of 64 rows
+    (333, 100, 32, 1332),  # one ray a block, 4 tiles of 32 rows
+    (255, 128, None, 1020),  # the FMA kernel: 32-row chunks of each ray
+    (255, 100, None, 1020),
+])
+def test_mask_halves_follow_the_route(n, s, rows, halves):
+    assert ttrain._mask_halves(n, s, rows) == halves
+
+
+def test_fp32_tile_workspace_packs_rays_by_the_tile():
+    """fp32 at S = 32 packs two rays a 64-row tile (mask words per tile
+    half), where the FMA kernel took one ray a block."""
+    cfg = flagship_tcfg(False)
+    act_w, cot_w, mask_w = ttrain._train_layout(cfg, 256, 128)
+    assert ttrain.train_workspace_bytes(cfg, 1023, 32, 256, 128) == \
+        1023 * 32 * (act_w * 4 + (cot_w + 6) * 4) + 1024 * mask_w * 4 == 727_010_816
+    wide = flagship_tcfg(False, 640)
+    act_w, cot_w, mask_w = ttrain._train_layout(wide, 640, 320)
+    assert ttrain.train_workspace_bytes(wide, 255, 100, 640, 320) == \
+        255 * 100 * (act_w * 4 + (cot_w + 6) * 4) + 255 * 4 * mask_w * 4
+
+
+@pytest.mark.parametrize("hidden_dim,n_hidden", [(32, 2), (48, 1), (100, 2)])
+def test_fp32_tile_weights_hold_w_at_a_row_stride_of_4(hidden_dim, n_hidden):
+    """The fp32 tile's forward weights: W as it is with its rows padded to a
+    multiple of 4 (zeros), the last segment layer without its density
+    column, which comes apart."""
+    _, tcfg = cfgs(n_hidden=n_hidden, hidden_dim=hidden_dim)
+    params = tmlp.init(torch.Generator().manual_seed(hidden_dim), tcfg)
+    layers = ttrain._layers(params)
+    last = 2 * n_hidden + 1
+    fwd, w_density = ttrain._fp32_tile_weights(layers, last, hidden_dim, "cpu")
+    assert len(fwd) == len(layers)
+    for i, (layer, w) in enumerate(zip(layers, fwd)):
+        want = layer.w.detach()[:, :hidden_dim] if i == last else layer.w.detach()
+        n = want.shape[1]
+        assert w.is_contiguous() and w.dtype == torch.float32
+        assert w.shape == (want.shape[0], (n + 3) // 4 * 4)
+        assert torch.equal(w[:, :n], want) and not w[:, n:].any()
+    assert torch.equal(w_density, layers[last].w.detach()[:, hidden_dim])
