@@ -3,8 +3,9 @@ per-layer metric readers by the names in `BENCHMARK.json`, runs the cell's
 kind of traffic (`kinds/<kind>.py`), reads the metrics, decides `correct`
 and builds the result line.
 
-A kind module names the program's entries it drives, `ENTRIES`, and has two
-functions:
+A kind module names the function a reference family needs for the kind to
+drive its entries, `FAMILY_FUNCTION`, and those entries, `ENTRIES`
+(`reference/__init__.py`); it has two functions:
   * `run(ctx) -> Outcome`: set-up, the measured window, the traced stretch
     (with `ctx.trace`) and the program's answers for the check, then the
     program's state freed;
@@ -98,35 +99,6 @@ class Outcome:
     memory_peak_bytes: int = 0
 
 
-def sub_seed(seed: int, stream: int) -> int:
-    """A 63-bit seed of its own for each use of the run's seed."""
-    x = (int(seed) * 0x9E3779B97F4A7C15 + stream * 0xBF58476D1CE4E5B9) & (2**64 - 1)
-    x ^= x >> 31
-    return x & (2**63 - 1)
-
-
-def draw_weights(shapes, seed: int, device) -> Dict[str, "torch.Tensor"]:
-    """Every leaf from the seed, on the device in one draw: an affine
-    layer's weight and bias uniform in +-1/sqrt(fan-in) (torch's
-    nn.Linear), the camera's rotation and translation zero (BARF's start)."""
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1))
-    drawn = [n for n in shapes if not n.startswith("camera.")]
-    total = sum(math.prod(shapes[n]) for n in drawn)
-    u = torch.rand(total, generator=gen, device=device) * 2.0 - 1.0
-    out, off = {}, 0
-    for name, shape in shapes.items():
-        if name.startswith("camera."):
-            out[name] = torch.zeros(shape, device=device)
-            continue
-        fan_in = shapes[name[:-1] + "w"][0]
-        n = math.prod(shape)
-        out[name] = u[off:off + n].view(shape) / math.sqrt(fan_in)
-        off += n
-    return out
-
-
 def load_weights(module, weights: Dict[str, "torch.Tensor"]) -> None:
     """Copy the weights into the program's parameters, which must be the
     same leaves."""
@@ -153,6 +125,30 @@ def metric_reader(name: str):
 
 def kind_module(kind: str):
     return importlib.import_module(f"bench_torch.kinds.{kind}")
+
+
+def families() -> list:
+    """Every family module of `reference/`: those that declare `ENTRIES`."""
+    names = sorted(f[:-3] for f in os.listdir(os.path.join(BENCH_DIR, "reference"))
+                   if f.endswith(".py") and not f.startswith("_"))
+    mods = [importlib.import_module(f"bench_torch.reference.{n}") for n in names]
+    return [m for m in mods if hasattr(m, "ENTRIES")]
+
+
+def family_module(config: dict):
+    """The one reference family whose `ENTRIES` hold the configuration's
+    entry."""
+    found = [f for f in families() if config.get("entry") in f.ENTRIES]
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} reference families model the entry "
+                         f"{config.get('entry')!r}: {[f.__name__ for f in found]}")
+    return found[0]
+
+
+def entries_with(function: str) -> tuple:
+    """The entries whose family has `function`: those a kind that needs it
+    drives."""
+    return tuple(e for f in families() if hasattr(f, function) for e in f.ENTRIES)
 
 
 def entry_module(config: dict):

@@ -2,9 +2,9 @@
 through the serving entry's `render_views.render_image`, one after another.
 
 Set-up builds the configuration from the entry's flags
-(`run_barf.build_config`) and the parameters as `render_views` does, loads
-the harness's weights into them, computes every test view's rays from the
-scene's test poses, draws the gauge (the similarity from the ground-truth
+(`<entry>.build_config`) and the parameters as `render_views` does, loads
+the weights of the configuration's reference family into them, computes
+every test view's rays from the scene's test poses, draws the gauge (the similarity from the ground-truth
 frame into the model's, which `render_views` computes once per checkpoint)
 and the order of the views from `--seed`, and renders one view to warm up.
 The window renders views in that order, cycling, until `--seconds` have
@@ -24,18 +24,30 @@ import torch
 
 from bench_torch import harness, scene
 from bench_torch import trace as tracing
-from bench_torch.reference import barf as ref
+from bench_torch.reference.common import exact_fp32, so3_exp, sub_seed
+
+# the kind builds the entry's configuration (`<entry>.build_config`) into the
+# BARF system's parameters (`systems/barf`) and serves them through
+# `render_views`: it drives the entries of a family that has the reference
+# view and states that the program serves its entries so
+FAMILY_FUNCTION = "render_view"
+SERVED_THROUGH = "render_views"
 
 
-ENTRIES = ("run_barf",)  # entries whose flags `render_views` serves
+def drives(family) -> bool:
+    return (hasattr(family, FAMILY_FUNCTION)
+            and getattr(family, "SERVED_THROUGH", None) == SERVED_THROUGH)
+
+
+ENTRIES = tuple(e for f in harness.families() if drives(f) for e in f.ENTRIES)
 
 
 def draw_gauge(seed: int, device):
     """(R, t, c): a rotation of ~0.15 rad about a random axis, a shift of
     ~0.15 and a scale of ~1 +- 0.05, from the seed."""
-    gen = torch.Generator(device=device).manual_seed(harness.sub_seed(seed, 2))
+    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 2))
     z = torch.randn(7, generator=gen, device=device)
-    R = ref.so3_exp(0.15 * z[:3])
+    R = so3_exp(0.15 * z[:3])
     return R, (0.15 * z[3:6])[None, :], 1.0 + 0.05 * z[6]
 
 
@@ -63,6 +75,7 @@ def _spans(render_views):
 
 def run(ctx: harness.Context) -> harness.Outcome:
     cfg_file, traffic = ctx.cell.config, ctx.cell.traffic
+    family = harness.family_module(cfg_file)
     model, size = cfg_file["model"], cfg_file["scene"]["image_size"]
     cuda = torch.device(ctx.device).type == "cuda"
     from nerf_experiments_tpu_torch.experiments import render_views
@@ -76,13 +89,13 @@ def run(ctx: harness.Context) -> harness.Outcome:
     harness.log(f"scene ready at {harness.elapsed(ctx.t_start):.2f} s")
     cfg, dm = entry.build_config(args)
     params = barf_sys.init(torch.Generator().manual_seed(args.seed), cfg).to(ctx.device)
-    weights = harness.draw_weights(ref.param_shapes(model, dm.n_training_images), ctx.seed,
-                                   ctx.device)
+    weights = family.draw_weights(family.param_shapes(model, dm.n_training_images), ctx.seed,
+                                  ctx.device)
     harness.load_weights(params, weights)
     origs, dirs, pixel_width = scene.view_rays(root, traffic["split"], size)
     gauge = draw_gauge(ctx.seed, ctx.device)
-    a_pos, a_dir = float(model["levels_pos"]), float(model["levels_dir"])
-    order = np.random.default_rng(harness.sub_seed(ctx.seed, 3)).permutation(len(origs))
+    a_pos, a_dir = float(model["levels_pos"]), float(model["levels_dir"])  # every level on
+    order = np.random.default_rng(sub_seed(ctx.seed, 3)).permutation(len(origs))
     chunk = int(traffic["chunk"])
     undo_fault = ctx.fault(render_views) if ctx.fault is not None else None
 
@@ -128,7 +141,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     failed = sum(not np.isfinite(rgb).all() for _, rgb in outputs.values())
     # the sample the check compares, drawn from the seed among the finished views
-    pick = np.random.default_rng(harness.sub_seed(ctx.seed, 4)).choice(
+    pick = np.random.default_rng(sub_seed(ctx.seed, 4)).choice(
         done, size=min(done, traffic["check_views"]), replace=False)
     check = {"weights": weights, "gauge": gauge,
              "views": [(outputs[int(k)][0], outputs[int(k)][1]) for k in sorted(pick)],
@@ -154,16 +167,18 @@ def compare(ctx: harness.Context, check: dict, control: str = None) -> Dict[str,
     gap, over the sampled views, against the reference rendering the same
     rays with the same weights and gauge."""
     model = ctx.cell.config["model"]
+    family = harness.family_module(ctx.cell.config)
     dev = check["gauge"][0].device
     widest, sq, n = 0.0, 0.0, 0
-    with ref.exact_fp32():
+    with exact_fp32():
         for i, served in check["views"]:
             o = torch.as_tensor(check["origs"][i], device=dev)
             d = torch.as_tensor(check["dirs"][i], device=dev)
-            r = ref.render_view(check["weights"], model, o, d, check["gauge"], check["chunk"])
+            r = family.render_view(check["weights"], model, o, d, check["gauge"],
+                                   check["chunk"])
             got = (torch.as_tensor(served, device=dev) if control is None else
-                   ref.render_view(check["weights"], model, o, d, check["gauge"],
-                                   check["chunk"], control))
+                   family.render_view(check["weights"], model, o, d, check["gauge"],
+                                      check["chunk"], control))
             gap = (got - r).double()
             widest = max(widest, float(gap.abs().max()))
             sq += float((gap ** 2).sum())

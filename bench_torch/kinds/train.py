@@ -1,18 +1,19 @@
 """Training traffic: a closed loop of training steps through the entry's
-own trainer (`run_barf.build`, `Trainer.fit`), resumed at a fixed step.
+own trainer (`<entry>.build`, `Trainer.fit`), resumed at a fixed step.
 
 Set-up builds the experiment once from the configuration's flags (the scene
 from the cache, the camera noise and the trainer's batch stream from
-`--seed`), loads the harness's weights into it and sets its step and its
-optimizer's update count to the traffic's `start_step`, with Adam's moments
-empty, as a run resumed there with a fresh optimizer. It then drives that
-same object through its first `check_steps` steps, recording each step's
-batch, the uniform its step generator hands the sampling and its loss; the
-first gradient (Adam's first moment after one step) and the parameters'
-change after the last; then `warmup_steps` more. The window trains until
-`--seconds` have passed on the host clock and closes at a device sync; a
-traced run then profiles `trace_steps` more steps with the harness's spans
-around the trainer's calls. Validation and image logs are off (events of an
+`--seed`), loads the weights of the configuration's reference family
+(`reference/<family>.py`) into it and sets its step and its optimizer's
+update count to the traffic's `start_step`, with Adam's moments empty, as a
+run resumed there with a fresh optimizer. It then drives that same object
+through its first `check_steps` steps, recording each step's batch, the
+state of its step generator (from which the family replays the step's
+draws) and its loss; the first gradient (Adam's first moment after one
+step) and the parameters' change after the last; then `warmup_steps` more.
+The window trains until `--seconds` have passed on the host clock and
+closes at a device sync; a traced run then profiles `trace_steps` more
+steps with the harness's spans around the trainer's calls. Validation and image logs are off (events of an
 epoch, which is longer than a run); log rows and the pose error stay as the
 entry sets them.
 """
@@ -29,10 +30,12 @@ import torch
 
 from bench_torch import harness, scene
 from bench_torch import trace as tracing
-from bench_torch.reference import barf as ref
+from bench_torch.reference.common import exact_fp32
 
-
-ENTRIES = ("run_barf",)  # entries with run_barf's flags, `build` and trainer
+# a family with the reference's steps models an entry with a `build`, a
+# `parse_args` and a trainer (`Trainer.fit`) that this kind drives
+FAMILY_FUNCTION = "train_steps"
+ENTRIES = harness.entries_with(FAMILY_FUNCTION)
 
 
 class _WindowEnd(Exception):
@@ -40,28 +43,33 @@ class _WindowEnd(Exception):
 
 
 class _Recorder:
-    """Wraps the trainer's step function for the check steps: records the
-    step's batch, the uniforms the step draws first from its generator (the
-    comb's offset, one a ray) and its loss."""
+    """Wraps the trainer's step function for the check steps: records, before
+    each step, the batch keys the family names and a copy of the state of
+    the step's generator; after it, the step's loss."""
 
-    def __init__(self, trainer):
-        self.trainer, self.inner = trainer, trainer.step_fn
+    def __init__(self, trainer, family):
+        self.trainer, self.inner, self.family = trainer, trainer.step_fn, family
         self.calls: List[Dict] = []
         trainer.step_fn = self
 
     def __call__(self, state, batch, gen, *scalars):
-        twin = torch.Generator(device=gen.device)
-        twin.set_state(gen.get_state())
-        n = batch["img_idx"].shape[0]
-        u = torch.rand((n, 1), generator=twin, device=gen.device)
+        call = {"batch": {k: batch[k].detach().clone() for k in self.family.BATCH_KEYS},
+                "gen_state": gen.get_state(), "gen_device": gen.device}
         state, metrics = self.inner(state, batch, gen, *scalars)
-        keep = ("origs_noisy", "dirs_noisy", "colors", "img_idx")
-        self.calls.append({"batch": dict({k: batch[k].detach().clone() for k in keep}, u=u),
-                           "loss": float(metrics["loss"])})
+        call["loss"] = float(metrics["loss"])
+        self.calls.append(call)
         return state, metrics
 
     def restore(self):
         self.trainer.step_fn = self.inner
+
+
+def replay(call: dict, family, model: dict) -> dict:
+    """A recorded step's batch with the draws the family's reference replays,
+    made from a generator at the step's starting state."""
+    gen = torch.Generator(device=call["gen_device"])
+    gen.set_state(call["gen_state"])
+    return dict(call["batch"], **family.step_draws(model, call["batch"], gen))
 
 
 def _fit_to(trainer, state, last_step: int):
@@ -117,6 +125,7 @@ def build(ctx: harness.Context, out_dir: str):
     the traffic's `start_step` with Adam's moments empty; validation and the
     image logs off."""
     cfg_file = ctx.cell.config
+    family = harness.family_module(cfg_file)
     entry = harness.entry_module(cfg_file)
     root = scene.ensure(cfg_file["scene"], images=("train", "val"), device=ctx.device)
     args = entry.parse_args(list(cfg_file["flags"]) + [
@@ -127,8 +136,8 @@ def build(ctx: harness.Context, out_dir: str):
     harness.log(f"experiment built at {harness.elapsed(ctx.t_start):.2f} s")
     exp.trainer.callbacks.clear()  # image and camera-point logs
     exp.trainer.val_fn = None
-    shapes = ref.param_shapes(cfg_file["model"], exp.dm.n_training_images)
-    weights = harness.draw_weights(shapes, ctx.seed, ctx.device)
+    shapes = family.param_shapes(cfg_file["model"], exp.dm.n_training_images)
+    weights = family.draw_weights(shapes, ctx.seed, ctx.device)
     harness.load_weights(exp.state.params, weights)
     start = int(ctx.cell.traffic["start_step"])
     exp.state.step = start
@@ -147,7 +156,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
         start = int(traffic["start_step"])
         undo_fault = ctx.fault(exp) if ctx.fault is not None else None
 
-        rec = _Recorder(trainer)
+        rec = _Recorder(trainer, harness.family_module(ctx.cell.config))
         state = _fit_to(trainer, state, start + 1)
         grads = _first_grads(state)
         state = _fit_to(trainer, state, start + traffic["check_steps"])
@@ -241,14 +250,15 @@ def compare(ctx: harness.Context, check: dict, control: str = None) -> Dict[str,
     reference gradient is under a thousandth of the median leaf's (moved by
     round-off alone under Adam) are left out of the change."""
     model = ctx.cell.config["model"]
-    batches = [c["batch"] for c in check["calls"]]
-    with ref.exact_fp32():
-        r = ref.train_steps(check["weights"], model, batches, check["start"])
+    family = harness.family_module(ctx.cell.config)
+    batches = [replay(c, family, model) for c in check["calls"]]
+    with exact_fp32():
+        r = family.train_steps(check["weights"], model, batches, check["start"])
         if control is None:
             prog = {"losses": [c["loss"] for c in check["calls"]], "grad": check["grads"],
                     "change": check["change"]}
         else:
-            prog = ref.train_steps(check["weights"], model, batches, check["start"], control)
+            prog = family.train_steps(check["weights"], model, batches, check["start"], control)
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(prog["losses"], r["losses"]))
     grad_gap, grad_leaf = _leaf_gap(prog["grad"], r["grad"])
     gnorm = {k: float(v.double().norm()) for k, v in r["grad"].items()}

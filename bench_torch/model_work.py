@@ -1,24 +1,20 @@
-"""Model FLOPs of a BARF configuration, from its sizes: the multiply-adds of
-one sample through each net's affine layers times the samples each net sees
-a ray."""
+"""Model FLOPs of a configuration, from its sizes: the multiply-adds of one
+ray through its nets' affine layers (`macs_per_ray` of the configuration's
+reference family) times the FLOPs a multiply-add costs."""
 from __future__ import annotations
 
-from bench_torch.reference import barf as ref
+from bench_torch import harness
 
 
-def macs_per_ray(model: dict) -> int:
-    macs = ref.macs_per_sample(model)
-    total = macs["radiance"] * model["samples"]
-    if "proposal" in macs:
-        total += macs["proposal"] * model["proposal"]["samples"]
-    return total
+def macs_per_ray(config: dict) -> int:
+    return harness.family_module(config).macs_per_ray(config["model"])
 
 
-def train_flops_per_ray(model: dict) -> int:
+def train_flops_per_ray(config: dict) -> int:
     """6 a weight a sample: the forward product and both backward ones."""
-    return 6 * macs_per_ray(model)
+    return 6 * macs_per_ray(config)
 
 
-def render_flops_per_ray(model: dict) -> int:
+def render_flops_per_ray(config: dict) -> int:
     """2 a weight a sample: the forward product."""
-    return 2 * macs_per_ray(model)
+    return 2 * macs_per_ray(config)

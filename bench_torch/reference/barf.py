@@ -1,6 +1,7 @@
 """The plain reference of the BARF cells: the step and the render in plain
 PyTorch, written from the published method, and importing nothing of the
-program under test.
+program under test. It is the family of `run_barf`'s configurations, with
+the interface `reference/__init__.py` lists.
 
 What it computes (BARF, Lin et al. 2021, https://arxiv.org/abs/2104.06405,
 as the reference repository `sarphiv/nerf-experiments` trains it in
@@ -39,15 +40,22 @@ products.
 """
 from __future__ import annotations
 
-import contextlib
+import copy
 import math
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-_TAYLOR_EPS = 1e-8
-_PDF_EPS = 1e-8
+from bench_torch.reference.common import (adam_steps, camera_rays, composite, le_nice,
+                                          pdf_bins, set_flags, softplus8, uniform_leaves)
+
+ENTRIES = ("run_barf",)  # entries with run_barf's flags, `build` and trainer
+SERVED_THROUGH = "render_views"  # the program serves their views so (`kinds/serve.py`)
+CONTROLS = ("tf32", "fp8")
+# what a check step records of its batch; the step's own draw is the comb's
+# uniform (`step_draws`)
+BATCH_KEYS = ("origs_noisy", "dirs_noisy", "colors", "img_idx")
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 FP8_MAX = 448.0  # the largest finite float8 e4m3 value
 
@@ -82,17 +90,6 @@ class _RoundedMatmul(torch.autograd.Function):
         xq, wq = ctx.saved_tensors
         gq = quantize(gy, ctx.precision)
         return gq @ wq.t(), xq.t() @ gq, None
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """TF32 off for the block's float32 products, restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, precision: str) -> torch.Tensor:
@@ -148,23 +145,30 @@ def macs_per_sample(model: dict) -> Dict[str, int]:
             for net, dims in nets(model).items()}
 
 
+def macs_per_ray(model: dict) -> int:
+    """Multiply-adds of one ray: each net's a sample times its samples."""
+    macs = macs_per_sample(model)
+    total = macs["radiance"] * model["samples"]
+    if "proposal" in macs:
+        total += macs["proposal"] * model["proposal"]["samples"]
+    return total
+
+
+def draw_weights(shapes, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Every leaf from the seed, on the device in one draw: an affine
+    layer's weight and bias uniform in +-1/sqrt(fan-in) (torch's
+    nn.Linear), the camera's rotation and translation zero (BARF's start)."""
+    u = uniform_leaves(shapes, seed, device, lambda n: not n.startswith("camera."))
+    out = {}
+    for name, shape in shapes.items():
+        if name.startswith("camera."):
+            out[name] = torch.zeros(shape, device=device)
+        else:
+            out[name] = u[name] / math.sqrt(shapes[name[:-1] + "w"][0])
+    return out
+
+
 # --- the model ----------------------------------------------------------------
-
-def so3_exp(w: torch.Tensor) -> torch.Tensor:
-    """(..., 3) -> (..., 3, 3) rotation matrices (Rodrigues)."""
-    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
-    z = torch.zeros_like(wx)
-    W = torch.stack([torch.stack([z, -wz, wy], -1), torch.stack([wz, z, -wx], -1),
-                     torch.stack([-wy, wx, z], -1)], -2)
-    t2 = torch.sum(w * w, dim=-1)[..., None, None]
-    t2s = torch.clamp(t2, min=_TAYLOR_EPS)
-    t = torch.sqrt(t2s)
-    a = torch.where(t2 < _TAYLOR_EPS, 1.0 - t2 / 6.0 + t2 * t2 / 120.0, torch.sin(t) / t)
-    b = torch.where(t2 < _TAYLOR_EPS, 0.5 - t2 / 24.0 + t2 * t2 / 720.0,
-                    (1.0 - torch.cos(t)) / t2s)
-    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
-    return eye + a * W + b * (W @ W)
-
 
 def encode(x: torch.Tensor, levels: int, alpha: float) -> torch.Tensor:
     """[x, mask cos(x 2^j), mask sin(x 2^j)] in channel-major order."""
@@ -174,10 +178,6 @@ def encode(x: torch.Tensor, levels: int, alpha: float) -> torch.Tensor:
     ramp = torch.clamp(torch.as_tensor(alpha, dtype=x.dtype, device=x.device) - k, 0.0, 1.0)
     mask = ((1.0 - torch.cos(ramp * math.pi)) / 2.0).repeat(x.shape[-1])
     return torch.cat([x, mask * torch.cos(args), mask * torch.sin(args)], dim=-1)
-
-
-def softplus8(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x > 8.0, x, torch.nn.functional.softplus(torch.clamp(x, max=8.0)))
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], net: str, dims, model: dict, pos, direc,
@@ -214,33 +214,6 @@ def bins(n_rays: int, n_samples: int, near: float, far: float, u: Optional[torch
     return t, torch.cat([t[:, 1:], torch.full_like(t[:, :1], far)], dim=1)
 
 
-def composite(density, rgb, t_start, t_end):
-    """(rgb (N, 3), weights (N, S)) of samples (N, S) and (N, S, 3)."""
-    b = -density * (t_end - t_start)
-    trans = torch.exp(torch.cat([torch.zeros_like(b[:, :1]), torch.cumsum(b, dim=-1)[:, :-1]],
-                                dim=-1))
-    w = trans * (1.0 - torch.exp(b))
-    return torch.sum(w[..., None] * rgb, dim=-2), w
-
-
-def pdf_bins(t_start, t_end, weights, n_samples: int, far: float):
-    """Fine bins placed by the inverse CDF of the coarse weights at quantiles
-    (i + 1/2) / n."""
-    edges = torch.cat([t_start, t_end[:, -1:]], dim=1)
-    w = weights + _PDF_EPS
-    cdf = torch.cat([torch.zeros_like(w[:, :1]),
-                     torch.cumsum(w / torch.sum(w, dim=-1, keepdim=True), dim=-1)], dim=-1)
-    u = ((torch.arange(n_samples, dtype=w.dtype, device=w.device) + 0.5) / n_samples)
-    u = u.expand(w.shape[0], n_samples).contiguous()
-    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, w.shape[1] - 1)
-    d_cdf = cdf[:, 1:] - cdf[:, :-1]
-    k = (edges[:, 1:] - edges[:, :-1]) / torch.where(d_cdf < _PDF_EPS, torch.ones_like(d_cdf),
-                                                     d_cdf)
-    base = edges[:, :-1] - cdf[:, :-1] * k
-    t = torch.gather(base, 1, idx) + u * torch.gather(k, 1, idx)
-    return t, torch.cat([t[:, 1:], torch.full_like(t[:, :1], far)], dim=1)
-
-
 def render_rays(p, model: dict, origs, dirs, u, offset: float, alpha_pos, alpha_dir,
                 precision: str):
     """(rgb_fine (N, 3), rgb_coarse (N, 3) or None) of rays (N, 3)."""
@@ -269,12 +242,6 @@ def render_rays(p, model: dict, origs, dirs, u, offset: float, alpha_pos, alpha_
 
 # --- training -----------------------------------------------------------------
 
-def le_nice(start: float, stop: float, n: int, count: int) -> float:
-    if n <= 0 or start == 0:
-        return start
-    return start * math.exp((math.log(stop) - math.log(start)) / n * min(float(count), n))
-
-
 def lr_of(name: str, model: dict, count: int) -> float:
     o = model["optim"]
     if name.startswith("camera."):
@@ -282,13 +249,18 @@ def lr_of(name: str, model: dict, count: int) -> float:
     return le_nice(o["lr"], o["lr"] / 50.0, o["lr_decay_end"], count)
 
 
+def step_draws(model: dict, batch: dict, generator: torch.Generator) -> dict:
+    """What the step draws from its generator, from a generator at the
+    step's starting state: the comb's uniform, first, one a ray."""
+    n = batch["img_idx"].shape[0]
+    return {"u": torch.rand((n, 1), generator=generator, device=generator.device)}
+
+
 def train_loss(p, model: dict, batch: dict, alpha_pos, alpha_dir, precision: str):
     """The step's objective on one batch: origs_noisy, dirs_noisy (B, 3),
     img_idx (B,), colors (B, n_sigmas, 3) (the sharp colour last: no blur),
     u (B, 1) the comb's uniform."""
-    idx = batch["img_idx"]
-    origs = batch["origs_noisy"] + p["camera.translation"][idx]
-    dirs = torch.einsum("bij,bj->bi", so3_exp(p["camera.rotation"])[idx], batch["dirs_noisy"])
+    origs, dirs = camera_rays(p, batch)
     target = batch["colors"][:, -1]
     rgb, rgb_coarse = render_rays(p, model, origs, dirs, batch["u"], model["offset"],
                                   alpha_pos, alpha_dir, precision)
@@ -305,27 +277,10 @@ def train_steps(weights: Dict[str, torch.Tensor], model: dict, batches: Sequence
     loss, every leaf's first gradient and every leaf's change after the last
     step."""
     alpha_pos, alpha_dir = float(model["levels_pos"]), float(model["levels_dir"])
-    p = {k: v.detach().clone().float().requires_grad_(True) for k, v in weights.items()}
-    m = {k: torch.zeros_like(v) for k, v in p.items()}
-    v2 = {k: torch.zeros_like(v) for k, v in p.items()}
-    losses, first_grad = [], None
-    for i, batch in enumerate(batches):
-        loss = train_loss(p, model, batch, alpha_pos, alpha_dir, precision)
-        grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
-        losses.append(float(loss.detach()))
-        grads = {k: (g if g is not None else torch.zeros_like(p[k]))
-                 for k, g in zip(p, grads)}
-        if first_grad is None:
-            first_grad = {k: g.detach().clone() for k, g in grads.items()}
-        t = i + 1
-        with torch.no_grad():
-            for k, g in grads.items():
-                m[k].mul_(ADAM_B1).add_(g, alpha=1 - ADAM_B1)
-                v2[k].mul_(ADAM_B2).addcmul_(g, g, value=1 - ADAM_B2)
-                denom = (v2[k].sqrt() / math.sqrt(1 - ADAM_B2 ** t)).add_(model["optim"]["adam_eps"])
-                p[k].addcdiv_(m[k], denom, value=-lr_of(k, model, start_count + i) / (1 - ADAM_B1 ** t))
-    change = {k: (p[k].detach() - weights[k].float()) for k in p}
-    return {"losses": losses, "grad": first_grad, "change": change}
+    return adam_steps(
+        weights, lambda p, batch: train_loss(p, model, batch, alpha_pos, alpha_dir, precision),
+        batches, lambda name, count: lr_of(name, model, count), start_count, ADAM_B1, ADAM_B2,
+        model["optim"]["adam_eps"])
 
 
 # --- serving ------------------------------------------------------------------
@@ -346,3 +301,50 @@ def render_view(weights: Dict[str, torch.Tensor], model: dict, origs: torch.Tens
                              float(model["levels_dir"]), precision)
         out.append(torch.clamp(rgb, 0.0, 1.0))
     return torch.cat(out)
+
+
+# --- the configuration --------------------------------------------------------
+
+def check_flags(args, config: dict) -> None:
+    """Raise ValueError where the entry's parsed flags and the sizes the
+    reference reads are not one configuration."""
+    m, o = config["model"], config["model"]["optim"]
+    pairs = [("hidden_dim", args.hidden_dim, m["hidden_dim"]),
+             ("n_hidden", args.n_hidden, m["n_hidden"]),
+             ("n_segments", args.n_segments, m["n_segments"]),
+             ("levels_pos", args.fourier_levels_pos, m["levels_pos"]),
+             ("levels_dir", args.fourier_levels_dir, m["levels_dir"]),
+             ("samples", args.samples_per_ray, m["samples"]),
+             ("image_size", args.image_size, config["scene"]["image_size"]),
+             ("bf16", args.bf16, config["precision"] == "bf16"),
+             ("fused_kernel", args.fused_kernel, True),
+             ("lr", args.learning_rate, o["lr"]),
+             ("lr_decay_end", args.lr_decay_end_step, o["lr_decay_end"]),
+             ("camera_lr", args.camera_lr, o["camera_lr"]),
+             ("camera_lr_stop", args.camera_lr_stop, o["camera_lr_stop"])]
+    if "proposal" in m:
+        p = m["proposal"]
+        pairs += [("proposal.hidden_dim", args.proposal_hidden_dim, p["hidden_dim"]),
+                  ("proposal.n_hidden", args.proposal_n_hidden, p["n_hidden"]),
+                  ("proposal.samples", args.samples_per_ray_proposal, p["samples"])]
+    else:
+        pairs.append(("proposal.samples", args.samples_per_ray_proposal, 0))
+    bad = [(what, flag, ref) for what, flag, ref in pairs if flag != ref]
+    if bad:
+        raise ValueError(f"flags against the reference's sizes (what, flag, reference): {bad}")
+
+
+def small(config: dict) -> dict:
+    """The configuration cut to a size the CPU runs in seconds, for the
+    harness's tests: the same widths, a 16x16 scene of 4 training views, 64
+    rays a step, 8 fine samples (16 proposal bins)."""
+    config = copy.deepcopy(config)
+    config["scene"].update({"image_size": 16, "train_views": 4, "val_views": 1,
+                            "test_views": 4})
+    flags = {"--image_size": 16, "--batch_size": 64, "--samples_per_ray": 8}
+    config["model"]["samples"] = 8
+    if "proposal" in config["model"]:
+        flags["--samples_per_ray_proposal"] = 16
+        config["model"]["proposal"]["samples"] = 16
+    config["flags"] = set_flags(config["flags"], flags)
+    return config

@@ -12,6 +12,7 @@ import pytest
 
 from bench_torch import harness
 from bench_torch.reference import barf as ref
+from bench_torch.tests.small import family_configs, train_cells
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -64,8 +65,10 @@ def test_names_units_and_keys():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves(cell):
     c = harness.resolve(cell)
-    assert c.traffic["kind"] in ("train", "serve")
-    harness.kind_module(c.traffic["kind"])
+    kind = harness.kind_module(c.traffic["kind"])
+    assert all(hasattr(kind, a) for a in ("FAMILY_FUNCTION", "ENTRIES", "run", "compare"))
+    family = harness.family_module(c.config)
+    assert c.config["entry"] in kind.ENTRIES and hasattr(family, kind.FAMILY_FUNCTION)
     assert c.limits, f"no limits/{cell}.json"
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
@@ -74,30 +77,16 @@ def test_cell_resolves(cell):
         assert m["moves"] in e2e
 
 
-@pytest.mark.parametrize("config", [c["file"] for c in BENCH["configs"]])
-def test_config_flags_agree_with_model(config):
+@pytest.mark.parametrize("family, config", family_configs())
+def test_config_flags_agree_with_model(family, config):
     """The entry's flags and the sizes the reference reads are one
-    configuration."""
-    cfg = harness.load_json(os.path.join(harness.ROOT, config))
-    args = harness.entry_module(cfg).parse_args(cfg["flags"])
-    m = cfg["model"]
-    assert (args.hidden_dim, args.n_hidden, args.n_segments) == (
-        m["hidden_dim"], m["n_hidden"], m["n_segments"])
-    assert (args.fourier_levels_pos, args.fourier_levels_dir) == (m["levels_pos"], m["levels_dir"])
-    assert args.samples_per_ray == m["samples"] and args.image_size == cfg["scene"]["image_size"]
-    assert args.bf16 == (cfg["precision"] == "bf16") and args.fused_kernel
-    assert args.learning_rate == m["optim"]["lr"]
-    assert args.lr_decay_end_step == m["optim"]["lr_decay_end"]
-    assert (args.camera_lr, args.camera_lr_stop) == (m["optim"]["camera_lr"],
-                                                     m["optim"]["camera_lr_stop"])
-    if "proposal" in m:
-        p = m["proposal"]
-        assert (args.proposal_hidden_dim, args.proposal_n_hidden,
-                args.samples_per_ray_proposal) == (p["hidden_dim"], p["n_hidden"], p["samples"])
-    else:
-        assert args.samples_per_ray_proposal == 0
-    assert set(cfg["reduced"]) <= set(cfg)
-    assert cfg["control"] in ("tf32", "fp8")
+    configuration, in full and as `small` cuts it for the CPU tests."""
+    fam = harness.family_module(config)
+    assert fam.__name__.endswith("." + family)
+    for cfg in (config, fam.small(config)):
+        fam.check_flags(harness.entry_module(cfg).parse_args(cfg["flags"]), cfg)
+    assert set(config["reduced"]) <= set(config)
+    assert config["control"] in fam.CONTROLS
 
 
 def test_an_entry_the_kind_does_not_drive_is_refused(tmp_path):
@@ -117,25 +106,27 @@ def test_an_entry_the_kind_does_not_drive_is_refused(tmp_path):
         harness.resolve(cell["name"], bench)
 
 
-@pytest.mark.parametrize("cell", [c for c in CELLS if c.endswith(".train")])
-def test_reference_leaves_are_the_programs(cell):
-    """The harness's weights fit the program's parameters leaf for leaf."""
+@pytest.mark.parametrize("family, cell", train_cells())
+def test_reference_leaves_are_the_programs(family, cell, tmp_path):
+    """The family's weights fit the program's parameters leaf for leaf, in
+    its ranges (the camera at zero, every other leaf drawn), and the seed
+    fixes them."""
     import torch
 
-    from bench_torch import scene
-    from bench_torch.tests.small import small_cell
-    from nerf_experiments_tpu_torch.experiments import run_barf
-    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+    from bench_torch.kinds import train as train_kind
+    from bench_torch.tests.small import context, small_cell
 
-    c = small_cell(cell)
-    root = scene.ensure(c.config["scene"], images=("train",), device="cpu")
-    cfg, dm = run_barf.build_config(run_barf.parse_args(c.config["flags"] + ["--scene_path", root]))
-    params = barf_sys.init(torch.Generator().manual_seed(0), cfg)
-    shapes = ref.param_shapes(c.config["model"], dm.n_training_images)
-    assert {n: tuple(p.shape) for n, p in params.named_parameters()} == dict(shapes)
-    w = harness.draw_weights(shapes, 3, "cpu")
-    harness.load_weights(params, w)
+    c = small_cell(*cell(tmp_path))
+    fam = harness.family_module(c.config)
+    ctx = context(c)
+    _, exp, w = train_kind.build(ctx, str(tmp_path / "out"))
+    shapes = fam.param_shapes(c.config["model"], exp.dm.n_training_images)
+    assert {n: tuple(p.shape) for n, p in exp.state.params.named_parameters()} == dict(shapes)
     assert all(float(v.abs().max()) == 0 for k, v in w.items() if k.startswith("camera."))
+    assert all(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0
+               for k, v in w.items() if not k.startswith("camera."))
+    again = fam.draw_weights(shapes, ctx.seed, "cpu")
+    assert all(torch.equal(again[k], w[k]) for k in shapes), "the seed does not fix the weights"
 
 
 def test_north_star_macs_per_sample():
@@ -163,12 +154,16 @@ def _imports(path):
 
 
 def test_reference_imports_nothing_of_the_program():
+    """A reference module imports torch, a few of the standard library's
+    modules and its sibling references: nothing of the program, JAX or
+    chip_smoke."""
     ref_dir = os.path.join(harness.BENCH_DIR, "reference")
     for f in os.listdir(ref_dir):
         if f.endswith(".py"):
             for mod in _imports(os.path.join(ref_dir, f)):
-                assert mod.split(".")[0] in ("torch", "math", "collections", "typing", "contextlib",
-                                             "__future__"), (f, mod)
+                assert (mod.split(".")[0] in ("torch", "math", "collections", "typing",
+                                              "contextlib", "copy", "__future__")
+                        or mod.startswith("bench_torch.reference")), (f, mod)
 
 
 def test_harness_reaches_no_jax():
@@ -179,7 +174,8 @@ def test_harness_reaches_no_jax():
         "from bench_torch import harness, scene, trace, faults, calibrate, peaks, model_work\n"
         "from bench_torch.kinds import train, serve\n"
         "import bench_torch.run\n"
-        "from nerf_experiments_tpu_torch.experiments import run_barf, render_views\n"
+        "from nerf_experiments_tpu_torch.experiments import run_barf, run_3d_ingp, render_views\n"
+        "harness.families()\n"
         "for m in [m['name'] for m in harness.benchmark()['per_layer']]:\n"
         "    harness.metric_reader(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"

@@ -3,10 +3,11 @@ the small size of `small.py`. A change to the program that breaks one makes
 every run of the cells that use it read `correct` false (or fail), so a
 program change has to keep these (README.md, "Seams"):
 
-* training: the step function that `Trainer.fit` calls draws the comb's
-  offset first from the step generator it is handed, as one (rays, 1)
-  `torch.rand`; the harness's recorder rebuilds that uniform for the
-  reference;
+* training: the step function that `Trainer.fit` calls draws from the step
+  generator it is handed what the family's `step_draws` draws, first and in
+  that order (for BARF the comb's offset, one (rays, 1) `torch.rand`); the
+  harness replays them for the reference from a copy of the generator's
+  state;
 * training: after one update from empty moments, Adam's `exp_avg` over
   (1 - beta1) is the first gradient, and `optimizer.count` counts updates;
 * training: `Trainer.fit` calls the instance's `_batch`, `step_fn` and each
@@ -24,11 +25,10 @@ import torch
 
 from bench_torch import harness, scene
 from bench_torch.kinds import train as train_kind
-from bench_torch.reference import barf as ref
-from bench_torch.tests.small import context, small_cell
+from bench_torch.reference.common import exact_fp32
+from bench_torch.tests.small import context, small_cell, train_cells
 
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
-TRAIN = [c for c in CELLS if harness.resolve(c).traffic["kind"] == "train"]
 SERVE = [c for c in CELLS if harness.resolve(c).traffic["kind"] == "serve"]
 
 
@@ -41,14 +41,17 @@ def _threads():
 
 
 def _built(cell, tmp_path):
-    ctx = context(small_cell(cell))
-    args, exp, weights = train_kind.build(ctx, str(tmp_path))
+    ctx = context(small_cell(*cell(tmp_path)))
+    args, exp, weights = train_kind.build(ctx, str(tmp_path / "out"))
     return ctx, exp, weights
 
 
-@pytest.mark.parametrize("cell", TRAIN)
-def test_step_draws_the_comb_offset_first(cell, tmp_path, monkeypatch):
+@pytest.mark.parametrize("family, cell", train_cells())
+def test_step_draws_the_comb_offset_first(family, cell, tmp_path, monkeypatch):
+    """The step's first draws from its generator are the family's
+    `step_draws`, in order: for BARF the comb's offset (rays, 1)."""
     ctx, exp, _ = _built(cell, tmp_path)
+    fam = harness.family_module(ctx.cell.config)
     trainer, start = exp.trainer, exp.state.step
     gen, real, drawn = trainer._generator, torch.rand, []
 
@@ -59,37 +62,45 @@ def test_step_draws_the_comb_offset_first(cell, tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(torch, "rand", spy)
-    rec = train_kind._Recorder(trainer)
+    rec = train_kind._Recorder(trainer, fam)
     train_kind._fit_to(trainer, exp.state, start + 1)
     rec.restore()
-    n = exp.trainer.cfg.batch_size
-    assert drawn, "the step drew no torch.rand from the step generator"
-    assert tuple(drawn[0].shape) == (n, 1), (
-        f"the step's first draw is {tuple(drawn[0].shape)}, not the comb's offset ({n}, 1)")
-    assert torch.equal(drawn[0], rec.calls[0]["batch"]["u"]), (
-        "the recorder's uniform is not the one the step drew first")
+    model = ctx.cell.config["model"]
+    replayed = train_kind.replay(rec.calls[0], fam, model)
+    expected = [k for k in replayed if k not in rec.calls[0]["batch"]]
+    assert len(drawn) >= len(expected), (
+        f"the step drew {len(drawn)} torch.rand from the step generator, the family "
+        f"replays {expected}")
+    for got, key in zip(drawn, expected):
+        assert tuple(got.shape) == tuple(replayed[key].shape), (
+            f"the step's draw is {tuple(got.shape)}, not the family's {key!r} "
+            f"{tuple(replayed[key].shape)}")
+        assert torch.equal(got, replayed[key]), (
+            f"the replayed {key!r} is not the one the step drew")
 
 
-@pytest.mark.parametrize("cell", TRAIN)
-def test_first_moment_is_the_first_gradient(cell, tmp_path):
+@pytest.mark.parametrize("family, cell", train_cells())
+def test_first_moment_is_the_first_gradient(family, cell, tmp_path):
     ctx, exp, weights = _built(cell, tmp_path)
+    fam = harness.family_module(ctx.cell.config)
     start = exp.state.step
-    rec = train_kind._Recorder(exp.trainer)
+    rec = train_kind._Recorder(exp.trainer, fam)
     state = train_kind._fit_to(exp.trainer, exp.state, start + 1)
     rec.restore()
     assert state.optimizer.count == start + 1
     adam = state.optimizer.adam
     assert all("exp_avg" in adam.state[p] for p in state.params.parameters())
     grads = train_kind._first_grads(state)
-    with ref.exact_fp32():
-        r = ref.train_steps(weights, ctx.cell.config["model"], [rec.calls[0]["batch"]], start)
+    model = ctx.cell.config["model"]
+    with exact_fp32():
+        r = fam.train_steps(weights, model, [train_kind.replay(rec.calls[0], fam, model)], start)
     gap, leaf = train_kind._leaf_gap(grads, r["grad"])
     limit = ctx.cell.limits["grad_gap"]
     assert gap <= limit, f"first moment against the reference gradient: {leaf} {gap} > {limit}"
 
 
-@pytest.mark.parametrize("cell", TRAIN[:1])
-def test_fit_calls_what_the_harness_wraps(cell, tmp_path):
+@pytest.mark.parametrize("family, cell", train_cells()[:1])
+def test_fit_calls_what_the_harness_wraps(family, cell, tmp_path):
     ctx, exp, _ = _built(cell, tmp_path)
     trainer, start = exp.trainer, exp.state.step
     calls = {"batch": 0, "step": 0, "callback": []}
@@ -133,8 +144,9 @@ def test_render_image_calls_forward_per_chunk(cell):
     entry = harness.entry_module(c.config)
     cfg, dm = entry.build_config(entry.parse_args(c.config["flags"] + ["--scene_path", root]))
     params = barf_sys.init(torch.Generator().manual_seed(0), cfg)
-    harness.load_weights(params, harness.draw_weights(
-        ref.param_shapes(c.config["model"], dm.n_training_images), 5, "cpu"))
+    fam = harness.family_module(c.config)
+    harness.load_weights(params, fam.draw_weights(
+        fam.param_shapes(c.config["model"], dm.n_training_images), 5, "cpu"))
     origs, dirs, pw = scene.view_rays(root, c.traffic["split"], size)
     counts = {"forward": 0, "transform": 0}
     forward, transform = barf_sys.forward, render_views.calibration.validation_transform_rays
