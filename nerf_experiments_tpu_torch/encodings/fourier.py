@@ -59,7 +59,9 @@ def _barf_mask(levels: int, space_dimensions: int, alpha, x: torch.Tensor) -> to
     """Coarse-to-fine cosine-edge mask (`compute_mask:105-122`): 1 below
     floor(alpha), (1 - cos((alpha - k)π))/2 at the ramp level, 0 above."""
     k = torch.arange(levels, dtype=x.dtype, device=x.device)
-    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    # a host alpha stays a host scalar, which a device kernel takes as an
+    # argument: copied to the device, it would wait for the device's queue
+    alpha = torch.as_tensor(alpha, dtype=x.dtype)
     ramp = torch.clamp(alpha - k, 0.0, 1.0)
     mask = (1.0 - torch.cos(ramp * math.pi)) / 2.0
     return mask.repeat(space_dimensions)

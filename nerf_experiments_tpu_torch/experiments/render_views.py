@@ -166,19 +166,27 @@ def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
     """One view's rays (HW, 3) through the gauge and `forward` (or, with
     serve_block > 1, `render_block_coarse`) in chunks of `chunk` rays ->
     clipped rgb (HW, 3). A chunk is padded with its last rays to a multiple
-    of serve_block, in raster order as block-coarse serving needs."""
+    of serve_block, in raster order as block-coarse serving needs.
+
+    The view's rays go to the device once, in the first chunk, and its rgb
+    comes back once, after the last: between them the host only issues work,
+    so it prepares chunk n+1 while the device runs chunk n. Each of the three
+    copies blocks on a CUDA device (`render_image.host_transfers` counts them)."""
     fused = barf_sys.use_fused_render(cfg, device)
-    out = np.empty((origs.shape[0], 3), np.float32)
-    for lo in range(0, origs.shape[0], chunk):
-        hi = min(lo + chunk, origs.shape[0])
+    n = origs.shape[0]
+    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
         with annotate("render.rays"):
+            if lo == 0:  # the view's rays, one copy each
+                origs_d = torch.as_tensor(origs, device=device)
+                dirs_d = torch.as_tensor(dirs, device=device)
+                render_image.host_transfers += 2
             pad = (lo - hi) % serve_block
-            o_c, d_c = origs[lo:hi], dirs[lo:hi]
+            o_c, d_c = origs_d[lo:hi], dirs_d[lo:hi]
             if pad:
-                o_c = np.concatenate([o_c, origs[hi - pad:hi]])
-                d_c = np.concatenate([d_c, dirs[hi - pad:hi]])
-            o_c = torch.as_tensor(o_c, device=device)
-            d_c = torch.as_tensor(d_c, device=device)
+                o_c = torch.cat([o_c, origs_d[hi - pad:hi]])
+                d_c = torch.cat([d_c, dirs_d[hi - pad:hi]])
         o, d = calibration.validation_transform_rays(o_c, d_c, gauge)
         with torch.no_grad():
             if serve_block > 1:
@@ -189,8 +197,14 @@ def render_image(params, cfg, origs: np.ndarray, dirs: np.ndarray, gauge,
                 rgb, _ = barf_sys.forward(params, cfg, None, o, d, pw, alpha_pos, alpha_dir,
                                           stratified=False, fused=fused)
         with annotate("render.to_host"):
-            out[lo:hi] = torch.clamp(rgb[:hi - lo], 0.0, 1.0).cpu().numpy()
-    return out
+            torch.clamp(rgb[:hi - lo], 0.0, 1.0, out=out[lo:hi])
+            if hi == n:  # the view's rgb: waits for every chunk's kernels
+                out = out.cpu()
+                render_image.host_transfers += 1
+    return out.numpy()
+
+
+render_image.host_transfers = 0
 
 
 def _render(args, cfg, dm, params):

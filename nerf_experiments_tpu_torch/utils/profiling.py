@@ -18,9 +18,12 @@ The program's spans, entered through `annotate` (no two siblings overlap):
     (guard, Adam, occupancy refresh);
   * each log row of `Trainer.fit`: `trainer.log`;
   * each chunk served (`render_views.render_image`): `render.rays` (the
-    chunk's rays to the card), `render.bins` (`forward` or
+    chunk's slice of the view's rays and its padding; in the first chunk
+    also the view's rays to the card), `render.bins` (`forward` or
     `render_block_coarse`: the fine bins; in the plain train step too),
-    `render.fine` (`rgb_fine_pass`), `render.to_host` (its rgb to the host).
+    `render.fine` (`rgb_fine_pass`), `render.to_host` (its rgb into the
+    view's buffer on the card; in the last chunk also the view's one copy to
+    the host, which waits for every chunk's kernels).
 """
 from __future__ import annotations
 
