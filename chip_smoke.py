@@ -28,11 +28,11 @@ Phases, each raising on failure:
      `flagship_train_grads_reference` at the flagship width (1024 x 128 fp32
      and bf16; 1024 x 32 fp32 with loss_scale and weights; 8192 x 32 bf16, the
      north-star training shape; 1023 x 32 and 333 x 100, fp32 and bf16; then
-     hidden 48 and 100, 512 on 32-row tiles, and 632 in fp32, the FMA
-     kernel): rgb, geometry gradients, weights and every dW/db, and two
-     launches bitwise equal; each setting's route (`train_route`) and the
-     launches each route counted, the flagship width in fp32 on the 64-row
-     tile;
+     hidden 48 and 100, and 512 on 32-row tiles): rgb, geometry gradients,
+     weights and every dW/db, and two launches bitwise equal; each setting's
+     route (`train_route`) and its launches counted, both compute types
+     launched, the flagship width in fp32 on the 64-row tile, and fp32
+     hidden 632, wider than a tile, refused;
   8. one train step, `train_step_fused` against `train_step`, from the same
      state, batch and generator seed (dense fp32, north-star bf16): the
      loss, every gradient handed to Adam, and the update;
@@ -521,24 +521,21 @@ def phase_train_kernel(dev):
     every output and every dW/db by relative norm, and two launches bitwise
     equal. The settings include the north-star training shape (8192 rays x
     32 samples, bf16, 16 row splits in the dW reduction); each logs its route
-    (`train_route`: a tile's rows, or the FMA kernel) and the launches each
-    route counted, and the flagship width in fp32 must take the 64-row tile.
-    Returns the worst fp32 max abs error."""
-    from unittest import mock
-
+    (`train_route`: the compute type's tile and its rows) and must launch
+    twice; both compute types must launch, the flagship width in fp32 must
+    take the 64-row tile, and fp32 hidden 632, wider than a tile, must be
+    refused. Returns the worst fp32 max abs error."""
     from nerf_experiments_tpu_torch.models import nerf_mlp
     from nerf_experiments_tpu_torch.ops import sampling
-    from nerf_experiments_tpu_torch.ops import train_megakernel as tm
     from nerf_experiments_tpu_torch.ops.train_megakernel import (
-        SMEM_LIMIT, fma_smem_bytes, flagship_train_grads, flagship_train_grads_reference,
-        train_route, train_workspace_bytes)
+        flagship_train_grads, flagship_train_grads_reference, train_route,
+        train_workspace_bytes)
 
     gen = torch.Generator(device=dev).manual_seed(6)
     worst_abs_fp32 = 0.0
     # the flagship width, then hidden 48 and 100 (colour 24 and 50, padded to
-    # 16 on the tensor cores), 512 (on 32-row tiles) and 632 (fp32: the FMA
-    # kernel, past the 32-row tile)
-    routes = dict.fromkeys(flagship_train_grads.route_launches, 0)
+    # 16 on the tensor cores) and 512 (on 32-row tiles)
+    routes = {}
     for n, s, bf16, with_w, scale, hidden in ((1024, 128, False, False, 1.0, 256),
                                               (1024, 128, True, False, 1.0, 256),
                                               (1024, 32, False, True, 0.1, 256),
@@ -553,39 +550,24 @@ def phase_train_kernel(dev):
                                               (333, 100, True, False, 1.0, 100),
                                               (255, 128, False, False, 1.0, 512),
                                               (255, 100, True, True, 1.0, 512),
-                                              (255, 32, True, False, 1.0, 512),
-                                              (255, 32, False, True, 1.0, 632)):
+                                              (255, 32, True, False, 1.0, 512)):
         origs, dirs = random_rays(n, gen, dev)
         targets = torch.rand((n, 3), generator=gen, device=dev)
         cfg = flagship_cfg(bf16, hidden_dim=hidden)
         params = nerf_mlp.init(torch.Generator().manual_seed(3), cfg).to(dev)
         ts, te = sampling.sample_stratified(None, n, s, 2.0, FAR, "equidistant", device=dev)
         args = (params, cfg, origs, dirs, ts, te, targets, 7.5, 2.5, scale, with_w)
-        before = dict(flagship_train_grads.route_launches)
+        before = flagship_train_grads.launches
         got = flagship_train_grads(*args)
         again = flagship_train_grads(*args)
         ref = flagship_train_grads_reference(*args)
         torch.cuda.synchronize()
-        counted = {k: v - before[k] for k, v in flagship_train_grads.route_launches.items()}
+        counted = flagship_train_grads.launches - before
         kind, rows = train_route(cfg, hidden, hidden // 2)
-        require(counted[kind] == 2 and sum(counted.values()) == 2,
-                f"K4 hidden {hidden}: route launches {counted}, want 2 on {kind}")
-        for k, v in counted.items():
-            routes[k] += v
-        route = f"{kind}, {rows}-row tiles" if rows else kind
-        tag = f"{n}x{s} {'bf16' if bf16 else 'fp32'} hidden {hidden} ({route}) loss_scale {scale}"
-        if kind == "tile_fp32" and fma_smem_bytes(cfg, hidden, hidden // 2) <= SMEM_LIMIT:
-            # the tile's forward adds as the FMA kernel does: rgb and weights
-            # bitwise its; only g W^T (3xTF32) moves the gradients
-            with mock.patch.object(tm, "train_route", lambda *_: ("fma", None)):
-                fma = flagship_train_grads(*args)
-            require(torch.equal(got[0], fma[0]) and all(
-                torch.equal(a, b) for a, b in zip(got[4:], fma[4:])),
-                f"K4 {tag}: rgb or weights differ from the FMA kernel's")
-            gap = max(rel_norm(got[1][k], fma[1][k]) for k in got[1])
-            log(f"K4 {tag}: rgb{' and weights' if with_w else ''} bitwise the FMA kernel's; "
-                f"worst grad rel norm against it {gap:.3e}")
-            del fma
+        require(counted == 2, f"K4 hidden {hidden}: {counted} launches, want 2")
+        routes[kind] = routes.get(kind, 0) + counted
+        tag = (f"{n}x{s} {'bf16' if bf16 else 'fp32'} hidden {hidden} ({kind}, {rows}-row "
+               f"tiles) loss_scale {scale}")
         flat = lambda out: [out[0], out[2], out[3], *out[1].values(), *out[4:]]
         require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
                 f"K4 {tag}: two launches differ")
@@ -613,7 +595,22 @@ def phase_train_kernel(dev):
     log(f"K4 launches by route: {routes}")
     require(train_route(flagship_cfg(False), 256, 128) == ("tile_fp32", 64),
             "K4 fp32 at the flagship width: not on the 64-row tile")
-    require(all(v > 0 for v in routes.values()), f"K4: a route never launched: {routes}")
+    require(set(routes) == {"tile_bf16", "tile_fp32"}, f"K4: a route never launched: {routes}")
+    # fp32 hidden 632: no tile fits, so no kernel (the plain step's width)
+    wide = flagship_cfg(False, hidden_dim=632)
+    require(train_route(wide, 632, 316) is None, "K4 fp32 hidden 632: a route was named")
+    origs, dirs = random_rays(32, gen, dev)
+    ts, te = sampling.sample_stratified(None, 32, 32, 2.0, FAR, "equidistant", device=dev)
+    params = nerf_mlp.init(torch.Generator().manual_seed(3), wide).to(dev)
+    before = flagship_train_grads.launches
+    try:
+        flagship_train_grads(params, wide, origs, dirs, ts, te, torch.rand_like(origs), 7.5,
+                             2.5)
+    except ValueError as err:
+        log(f"K4 fp32 hidden 632 refused: {err}")
+    else:
+        require(False, "K4 fp32 hidden 632: launched where no tile fits")
+    require(flagship_train_grads.launches == before, "K4 fp32 hidden 632: a launch was counted")
     return worst_abs_fp32
 
 
@@ -723,9 +720,14 @@ def phase_train_step(dev):
 def phase_training(dev, workdir):
     """run_barf.main --fused_kernel end to end, with launches counted."""
     from nerf_experiments_tpu_torch.experiments import render_views, run_barf
+    from nerf_experiments_tpu_torch.ops.train_megakernel import train_route
 
     def counted(argv):
         return counted_run(run_barf.main, argv)
+
+    def route(argv):  # K4's route for the run's radiance net
+        mlp = run_barf.build_config(run_barf.parse_args(argv))[0].radiance
+        return train_route(mlp, mlp.hidden_dim, mlp.hidden_dim // 2)
 
     # dense flagship, the JAX package's end-to-end test at full width
     out = os.path.join(workdir, "train_dense")
@@ -745,8 +747,7 @@ def phase_training(dev, workdir):
     require(state.step == 300, "dense run did not reach 300 steps")
     require(psnrs[-1] > psnrs[0] + 1.0 and psnrs[-1] > 10.0, f"dense PSNR {psnrs}")
     require(launches_dense["flagship_train"] >= 300, "dense: K4 not on every step")
-    require(launches_dense["flagship_train_tile_fp32"] == launches_dense["flagship_train"],
-            f"dense: K4 off the fp32 tile on some step: {launches_dense}")
+    require(route(dense) == ("tile_fp32", 64), f"dense: K4 route {route(dense)}")
 
     # other widths, each logging images through K2 from its first step: hidden
     # 100 fused in bf16 (tiles padded to 16), hidden 512 on the plain step in
@@ -777,8 +778,7 @@ def phase_training(dev, workdir):
     require(all(math.isfinite(v) for v in losses), "northstar: non-finite loss")
     for k in ("flagship_train", "render_fwd", "render_bwd"):
         require(launches_ns[k] >= steps, f"northstar: {k} launched {launches_ns[k]} < {steps}")
-    require(launches_ns["flagship_train_tile_bf16"] == launches_ns["flagship_train"],
-            f"northstar: K4 off the bf16 tile on some step: {launches_ns}")
+    require(route(ns) == ("tile_bf16", 64), f"northstar: K4 route {route(ns)}")
     state, launches_resume = counted(ns + ["--max_steps", str(steps + 10), "--resume"])
     log(f"resume northstar: {state.step} steps, launches {launches_resume}")
     require(state.step == steps + 10 and launches_resume["flagship_train"] == 10,
@@ -2478,7 +2478,7 @@ def phase_mip_timing(dev):
 OCC_S32 = ["--samples_per_ray", "32", "--occ_grid_resolution", "64"]
 BLK4 = ["--train_coarse_block", "4", "--fused_kernel"]
 # the slice's BARF configs at full width: north_star_occ_S32 and the blk4
-# rows in bf16, and their fp32 counterparts (K4's FMA route)
+# rows in bf16, and their fp32 counterparts (K4's fp32 tile)
 SLICE_CONFIGS = {
     "north_star_S32 bf16": NORTHSTAR,
     "north_star_occ_S32 bf16": OCC_S32 + ["--bf16"],
@@ -2515,19 +2515,13 @@ def launch_counters() -> dict:
 
 def counted_run(main, argv):
     """`main(argv)` with every count set to 0 just before and read just
-    after: (its result, {kernel: launches}), K4's also by route
-    (`flagship_train_<route>`, from `flagship_train_grads.route_launches`)."""
+    after: (its result, {kernel: launches})."""
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    routes = counters["flagship_train"].route_launches
-    for k in routes:
-        routes[k] = 0
     out = main(argv)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches.update({f"flagship_train_{k}": v for k, v in routes.items()})
-    return out, launches
+    return out, {k: fn.launches for k, fn in counters.items()}
 
 
 def add_launches(total: dict, launches: dict) -> dict:
@@ -3867,7 +3861,8 @@ def kernel_bounds():
     the cheapest such split on the tensor cores: three bf16 parts a factor,
     a = a0 + a1 + a2, and the six partial products a_i b_j with i + j <= 2
     (those dropped are 2^-24 of the product), six products at the bf16 rate,
-    as fast as 3xTF32; whatever route the kernel takes (today FMA loops)."""
+    as fast as 3xTF32; whatever route the kernel takes (today its forward on
+    the CUDA cores)."""
     from nerf_experiments_tpu_torch.models import garf, nerf_mlp
 
     f32 = 4
@@ -4048,7 +4043,6 @@ def main() -> int:
          "launches": train_launches["flagship_train"] + slice_launches["flagship_train"]
          + mesh_launches["flagship_train"],
          "max_abs_err": k4_err,
-         "dense_run_launches_tile_fp32": train_launches["flagship_train_tile_fp32"],
          "ms": train_times["K4_S128_fp32"][0], "plain_ms": train_times["K4_S128_fp32"][1],
          "ms_1024": train_times["K4_1024_S128_fp32"][0],
          "plain_ms_1024": train_times["K4_1024_S128_fp32"][1]},

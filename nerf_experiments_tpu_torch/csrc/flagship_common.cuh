@@ -1,9 +1,7 @@
 // Device helpers shared by the flagship BARF radiance kernels
 // (`flagship_render.cu`: K2, which K11 launches too; `flagship_train.cu`: K4),
-// the GARF kernels (`garf_common.cuh`: K5, K6), the fused MLP chain
-// (`fused_mlp.cu`: K9, K10) and, for the FMA helper `accumulate`, K4's FMA
-// kernel: there one thread owns an output column and keeps kRows row
-// accumulators in registers, so one weight load feeds kRows FMAs.
+// the GARF kernels (`garf_common.cuh`: K5, K6) and the fused MLP chain
+// (`fused_mlp.cu`: K9, K10).
 //
 // K2, K4 (bf16; in fp32 its g W^T), K5, K6, K9 (bf16) and K10 run their
 // matrix products on the tensor cores through the tile at the end of this
@@ -54,7 +52,6 @@
 
 namespace netpu {
 
-constexpr int kRows = 32;      // samples per chunk (= one warp for compositing)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 64;
@@ -81,33 +78,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 template <bool kBf16>
 __device__ __forceinline__ float cde(float x) {
   return kBf16 ? __bfloat162float(__float2bfloat16(x)) : x;
-}
-
-// acc[r] += sum_k in[r * ld + k] * W[(k0 + k) * n_out + j] for k < K.
-// `in` is 16-byte aligned and ld % 4 == 0, so rows are read as float4.
-template <typename WT>
-__device__ __forceinline__ void accumulate(float (&acc)[kRows], const float* in, int ld,
-                                           int K, const WT* W, int k0, int n_out, int j) {
-  const int K4 = K & ~3;
-  for (int k = 0; k < K4; k += 4) {
-    const float w0 = load_w(W, static_cast<size_t>(k0 + k) * n_out + j);
-    const float w1 = load_w(W, static_cast<size_t>(k0 + k + 1) * n_out + j);
-    const float w2 = load_w(W, static_cast<size_t>(k0 + k + 2) * n_out + j);
-    const float w3 = load_w(W, static_cast<size_t>(k0 + k + 3) * n_out + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(in + r * ld + k);
-      acc[r] = fmaf(x.x, w0, acc[r]);
-      acc[r] = fmaf(x.y, w1, acc[r]);
-      acc[r] = fmaf(x.z, w2, acc[r]);
-      acc[r] = fmaf(x.w, w3, acc[r]);
-    }
-  }
-  for (int k = K4; k < K; ++k) {
-    const float w = load_w(W, static_cast<size_t>(k0 + k) * n_out + j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(in[r * ld + k], w, acc[r]);
-  }
 }
 
 // The BARF window of every level: (1 - cos(clamp(alpha - l, 0, 1) pi)) / 2,

@@ -17,9 +17,10 @@
 // activations in ~24 MB of VMEM from forward through backward; one flagship
 // sample row stores 2,778 activations and 2,698 cotangents (16.3 KB a row in
 // bf16) and a Hopper block has at most 227 KB. So the work is split in two
-// phases, and the compute type and the widths pick the route.
+// phases, on a row tile in both compute types; the compute type picks the
+// forward's route.
 //
-// The tile route (`flagship_train_kernel<kBf16, kR>`), both compute types:
+// The tile (`flagship_train_kernel<kBf16, kR>`), both compute types:
 //   * phase A, a block of kR / S rays (S <= kR) or one ray, walking kR-row
 //     tiles (`flagship_common.cuh`; kR = 64, or 32 where a 64-row tile's
 //     block would pass 227 KB: the wrapper picks, `train_megakernel.tile_rows`;
@@ -43,21 +44,16 @@
 //     does, so the workspace keeps them fp32 (bf16 cotangents with db summed
 //     in phase A halve their bytes; one development trial of that made phase
 //     B slower, PERF.md section 7);
-//   * fp32: the FMA kernel below ran its phase A at 30 % of the CUDA cores'
-//     rate, held back by its loops: a thread owned one output column and 32
-//     row accumulators, so every 4 k took 32 broadcast shared-memory loads for
-//     128 FMAs (one load instruction for four FMAs), every weight came from L2
-//     at every k, and every 32-row chunk ended each layer with a barrier. Here
-//     the forward runs register-tiled on the CUDA cores (`fma_layer` of
+//   * fp32: the forward runs register-tiled on the CUDA cores (`fma_layer` of
 //     `fma_tile.cuh`: a thread owns R rows x 8 columns, W staged into shared
-//     memory by cp.async) and adds every output in the FMA kernel's order (k
-//     = 0, 1, ... of the first input, then of the second, then the bias; the
+//     memory by cp.async) and adds every output as a plain fp32 GEMM adds it:
+//     k = 0, 1, ... of the first input, then of the second, then the bias (the
 //     density column and the logits one thread a (row, column), `narrow`), so
-//     activations, ReLU masks, rgb, weights and loss are bitwise the FMA
-//     kernel's. The forward stays off the tensor cores: 3xTF32 products carry
-//     ~2^-21 relative error against fp32's 2^-24, enough to flip the ReLU of a
-//     few units whose pre-activation is within that of 0, and one flipped unit
-//     moves the gradients of the first layers by ~1e-4 relative norm, the fp32
+//     each ReLU is decided as the plain version decides it. The forward
+//     stays off the tensor cores: 3xTF32 products carry ~2^-21 relative error
+//     against fp32's 2^-24, enough to flip the ReLU of a few units whose
+//     pre-activation is within that of 0, and one flipped unit moves the
+//     gradients of the first layers by ~1e-4 relative norm, the fp32
 //     tolerance (`scripts/tf32_relu_flips.py` on the CPU; PERF.md section 6).
 //     Only g W^T is 3xTF32 (m16n8k8, the truncating accumulator flushed into
 //     fp32 every 8 k-steps, `kFlushK`; g and W^T split into TF32 hi / lo to
@@ -76,12 +72,7 @@
 //     memory, since the rows are the reduction), split over the rows into
 //     fixed partials that a third kernel adds in a fixed order. No atomics:
 //     two launches give bitwise equal gradients.
-//
-// The FMA kernel (`flagship_train_fma_kernel`, phase B `dw_tile`): one block
-// a ray in 32-row chunks on the CUDA cores, the fp32 design before the tile,
-// kept for fp32 widths whose 32-row tile passes 227 KB while its block fits
-// (D ~624-852; the fused step reaches it up to 639, where the render
-// kernel's tile stops).
+
 #include "fma_tile.cuh"
 #include "train_common.cuh"
 
@@ -91,343 +82,6 @@ using namespace netpu;
 
 constexpr int kAux = 6;        // per-row compositing record: raw density, rgb, T, w
 constexpr int kComp = 16;      // per-ray state: carry, rgb, d_origs (3), d_dirs (3)
-constexpr int kGradRows = 96;  // FMA kernel: threads holding a (row, coordinate) partial
-
-// ---- the FMA kernel: fp32 loops on the CUDA cores, one output column a thread ----
-
-struct FmaLayers {
-  const float* w[kMaxLayers];   // (in, out) row-major
-  const float* b[kMaxLayers];   // (out,)
-  const float* wt[kMaxLayers];  // (out, in): the same weights transposed
-};
-
-// out[r][j] = act(in1[r] . W[0:K1, j] + in2[r] . W[K1:K1+K2, j] + b[j]) for the
-// chunk's live rows. With `store`, columns j < n_store are also written to
-// store[r * sld + j] (the training kernel's activation workspace), and with
-// `mask_out` bit r of mask_out[j] records out[r][j] > 0 (its ReLU mask, one
-// word per column).
-__device__ void dense(const float* in1, int ld1, int K1, const float* in2, int ld2, int K2,
-                      const float* W, const float* bias, int n_out, float* out, int ldo,
-                      int rows, bool relu, float* store, size_t sld, int n_store,
-                      unsigned* mask_out) {
-  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    accumulate(acc, in1, ld1, K1, W, 0, n_out, j);
-    if (K2 > 0) accumulate(acc, in2, ld2, K2, W, K1, n_out, j);
-    const float bj = __ldg(bias + j);
-    unsigned bits = 0u;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) {
-        float z = acc[r] + bj;
-        if (relu) z = fmaxf(z, 0.f);
-        out[r * ldo + j] = z;
-        if (store != nullptr && j < n_store) store[r * sld + j] = z;
-        if (z > 0.f) bits |= 1u << r;
-      }
-    }
-    if (mask_out != nullptr) mask_out[j] = bits;
-  }
-}
-
-// Backward through one dense layer for the chunk's rows: t[r][k] =
-// sum_n g[r][n] * Wt[n][k] for k < K1 + K2, Wt the (n_in, K1 + K2) transposed
-// weight. Outputs k < K1 (the cotangent of a hidden layer's pre-activation)
-// are masked by the ReLU mask words mask1[k] when given and stored to glob1
-// and to dst1 (the next matmul's input); outputs k >= K1 (an encoding's
-// cotangent) are written or added into dst2.
-__device__ void dense_bwd(const float* g, int ldg, int n_in, const float* Wt, int K1,
-                          float* dst1, int ld1, float* glob1, size_t gld,
-                          const unsigned* mask1, int K2, float* dst2, int ld2, bool add2,
-                          int rows) {
-  const int K = K1 + K2;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    accumulate(acc, g, ldg, n_in, Wt, 0, K, k);
-    if (k < K1) {
-      const unsigned bits = mask1 != nullptr ? mask1[k] : 0xffffffffu;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float v = (bits >> r) & 1u ? acc[r] : 0.f;
-          glob1[r * gld + k] = v;
-          dst1[r * ld1 + k] = v;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          float* p = dst2 + r * ld2 + (k - K1);
-          *p = add2 ? *p + acc[r] : acc[r];
-        }
-      }
-    }
-  }
-}
-
-// The FMA kernel, one block a ray on the CUDA cores. Two blocks per SM (the
-// shared memory allows two at the flagship width): without the bound ptxas
-// takes ~200 registers and one block fits, which measured 1.5x slower.
-__global__ void __launch_bounds__(kThreads, 2)
-flagship_train_fma_kernel(const float* __restrict__ origs, const float* __restrict__ dirs,
-                      const float* __restrict__ t_start, const float* __restrict__ t_end,
-                      const float* __restrict__ targets, FmaLayers layers,
-                      int S, int n_hidden, int D, int C, int Lp, int Ld, float scale,
-                      float alpha_pos, float alpha_dir, float density_scale, float grad_scale,
-                      float* act, float* cot, float* aux, unsigned* masks,
-                      float* __restrict__ rgb_out,
-                      float* __restrict__ d_origs, float* __restrict__ d_dirs,
-                      float* __restrict__ weights_out) {
-  extern __shared__ __align__(16) unsigned char smem_bytes[];
-  float* smem = reinterpret_cast<float*>(smem_bytes);
-  const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
-  const int L = n_hidden + 1;  // layers per segment
-  const Layout lay{P, Q, D, C, L};
-  const size_t AW = lay.act_width(), GW = lay.cot_width(), MW = lay.mask_width();
-  const int n_chunks = (S + kRows - 1) / kRows;
-  const int lda = round4(D + 1), ldp = round4(P), ldq = round4(Q);
-  float* mask = smem;                          // Lp + Ld
-  float* red = mask + round4(Lp + Ld);         // 2 x kGradRows
-  float* tq = red + 2 * kGradRows;             // kRows
-  float* dist = tq + kRows;                    // kRows
-  float* buf0 = dist + kRows;                  // kRows x lda: activations / cotangents
-  float* buf1 = buf0 + kRows * lda;            // kRows x lda
-  float* enc_p = buf1 + kRows * lda;           // kRows x ldp: encoding / its cotangent
-  float* enc_d = enc_p + kRows * ldp;          // kRows x ldq
-  float* logits = enc_d + kRows * ldq;         // kRows x 3
-
-  const int ray = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t ray_row = static_cast<size_t>(ray) * S;
-
-  barf_window(mask, Lp, Ld, alpha_pos, alpha_dir);
-  float o[3], d[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    o[c] = __ldg(origs + ray * 3 + c);
-    d[c] = __ldg(dirs + ray * 3 + c);
-  }
-
-  // ---- forward, chunk by chunk; compositing state lives in warp 0 ----
-  float carry = 0.f, acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
-  for (int base = 0; base < S; base += kRows) {
-    const int rows = min(kRows, S - base);
-    const size_t row0 = ray_row + base;
-    float* a0 = act + row0 * AW;
-    unsigned* m0 = masks + (static_cast<size_t>(ray) * n_chunks + base / kRows) * MW;
-    for (int r = tid; r < rows; r += blockDim.x) {
-      const float ts = t_start[row0 + r], te = t_end[row0 + r];
-      tq[r] = (ts + te) / 2.f;
-      dist[r] = te - ts;
-    }
-    __syncthreads();  // also publishes mask on the first chunk
-    for (int idx = tid; idx < rows * 3; idx += blockDim.x) {
-      const int r = idx / 3, c = idx % 3;
-      const float p = __fadd_rn(o[c], __fmul_rn(tq[r], d[c]));
-      encode<false>(p, c, Lp, mask, scale, enc_p + r * ldp);
-      encode<false>(d[c], c, Ld, mask + Lp, scale, enc_d + r * ldq);
-    }
-    __syncthreads();
-    for (int idx = tid; idx < rows * P; idx += blockDim.x)
-      a0[(idx / P) * AW + idx % P] = enc_p[(idx / P) * ldp + idx % P];
-    for (int idx = tid; idx < rows * Q; idx += blockDim.x)
-      a0[(idx / Q) * AW + P + idx % Q] = enc_d[(idx / Q) * ldq + idx % Q];
-
-    float* cur = buf0;
-    float* nxt = buf1;
-    dense(enc_p, ldp, P, nullptr, 0, 0, layers.w[0], layers.b[0], D, cur, lda, rows, true,
-          a0 + lay.h1(0), AW, D, m0 + lay.m_h1(0));
-    __syncthreads();
-    for (int i = 1; i < L; ++i) {
-      dense(cur, lda, D, nullptr, 0, 0, layers.w[i], layers.b[i], D, nxt, lda, rows, true,
-            a0 + lay.h1(i), AW, D, m0 + lay.m_h1(i));
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-    dense(cur, lda, D, enc_p, ldp, P, layers.w[L], layers.b[L], D, nxt, lda, rows, true,
-          a0 + lay.h2(0), AW, D, m0 + lay.m_h2(0));
-    __syncthreads();
-    { float* t = cur; cur = nxt; nxt = t; }
-    for (int i = 1; i < L - 1; ++i) {
-      dense(cur, lda, D, nullptr, 0, 0, layers.w[L + i], layers.b[L + i], D, nxt, lda, rows,
-            true, a0 + lay.h2(i), AW, D, m0 + lay.m_h2(i));
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-    dense(cur, lda, D, nullptr, 0, 0, layers.w[2 * L - 1], layers.b[2 * L - 1], D + 1, nxt,
-          lda, rows, false, a0 + lay.hid(), AW, D, nullptr);
-    __syncthreads();
-    { float* t = cur; cur = nxt; nxt = t; }
-    // cur[r][0:D] = hidden features, cur[r][D] = raw density
-    dense(cur, lda, D, enc_d, ldq, Q, layers.w[2 * L], layers.b[2 * L], C, nxt, lda, rows,
-          true, a0 + lay.c0(), AW, C, m0 + lay.m_c0());
-    __syncthreads();
-    dense(nxt, lda, C, nullptr, 0, 0, layers.w[2 * L + 1], layers.b[2 * L + 1], 3, logits, 3,
-          rows, false, nullptr, 0, 0, nullptr);
-    __syncthreads();
-
-    if (warp == 0) {
-      float raw = 0.f, blk = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-      if (lane < rows) {
-        raw = cur[lane * lda + D];
-        blk = -softplus8(raw) * dist[lane] * density_scale;
-        c0 = 1.f / (1.f + expf(-logits[lane * 3 + 0]));
-        c1 = 1.f / (1.f + expf(-logits[lane * 3 + 1]));
-        c2 = 1.f / (1.f + expf(-logits[lane * 3 + 2]));
-      }
-      const float incl = warp_scan(blk, lane);
-      float excl = __shfl_up_sync(kFull, incl, 1);
-      if (lane == 0) excl = 0.f;
-      const float T = expf(carry + excl);
-      const float w = T * (1.f - expf(blk));
-      if (lane < rows) {
-        acc_r += w * c0;
-        acc_g += w * c1;
-        acc_b += w * c2;
-        float* x = aux + (row0 + lane) * kAux;
-        x[0] = raw; x[1] = c0; x[2] = c1; x[3] = c2; x[4] = T; x[5] = w;
-        if (weights_out) weights_out[row0 + lane] = w;
-      }
-      carry += __shfl_sync(kFull, incl, 31);
-    }
-    __syncthreads();  // the next chunk overwrites tq, dist and the buffers
-  }
-
-  // ---- loss gradient and compositing backward (warp 0) ----
-  if (warp == 0) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc_r += __shfl_xor_sync(kFull, acc_r, off);
-      acc_g += __shfl_xor_sync(kFull, acc_g, off);
-      acc_b += __shfl_xor_sync(kFull, acc_b, off);
-    }
-    if (lane == 0) {
-      rgb_out[ray * 3 + 0] = acc_r;
-      rgb_out[ray * 3 + 1] = acc_g;
-      rgb_out[ray * 3 + 2] = acc_b;
-    }
-    const float g0 = grad_scale * (acc_r - __ldg(targets + ray * 3 + 0));
-    const float g1 = grad_scale * (acc_g - __ldg(targets + ray * 3 + 1));
-    const float g2 = grad_scale * (acc_b - __ldg(targets + ray * 3 + 2));
-    float tail = 0.f;  // sum of g_w * w over the samples after this chunk
-    for (int base = ((S - 1) / kRows) * kRows; base >= 0; base -= kRows) {
-      const int i = base + lane;
-      const bool live = i < S;
-      const size_t row = ray_row + i;
-      float raw = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, T = 0.f, w = 0.f, dt = 0.f;
-      if (live) {
-        const float* x = aux + row * kAux;
-        raw = x[0]; c0 = x[1]; c1 = x[2]; c2 = x[3]; T = x[4]; w = x[5];
-        dt = t_end[row] - t_start[row];
-      }
-      const float gw = g0 * c0 + g1 * c1 + g2 * c2;  // dL/dw of this sample
-      float sfx = gw * w;                           // reverse inclusive scan
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_down_sync(kFull, sfx, off);
-        if (lane + off < 32) sfx += y;
-      }
-      float after = __shfl_down_sync(kFull, sfx, 1);
-      if (lane == 31) after = 0.f;
-      if (live) {
-        const float blk = -softplus8(raw) * dt * density_scale;
-        const float d_blk = -gw * T * expf(blk) + (tail + after);
-        const float d_sigma = d_blk * (-dt * density_scale);
-        const float sp = raw > 8.f ? 1.f : 1.f / (1.f + expf(-raw));
-        float* g = cot + row * GW;
-        g[lay.g(2 * L - 1) + D] = d_sigma * sp;
-        g[lay.g(2 * L + 1) + 0] = g0 * w * c0 * (1.f - c0);
-        g[lay.g(2 * L + 1) + 1] = g1 * w * c1 * (1.f - c1);
-        g[lay.g(2 * L + 1) + 2] = g2 * w * c2 * (1.f - c2);
-      }
-      tail += __shfl_sync(kFull, sfx, 0);
-    }
-  }
-  __syncthreads();  // warp 0's cotangents are visible to the block
-
-  // ---- MLP backward, chunk by chunk ----
-  float geo_o = 0.f, geo_d = 0.f;  // this thread's (row, coordinate) partials
-  for (int base = 0; base < S; base += kRows) {
-    const int rows = min(kRows, S - base);
-    const size_t row0 = ray_row + base;
-    const unsigned* m0 = masks + (static_cast<size_t>(ray) * n_chunks + base / kRows) * MW;
-    float* cot0 = cot + row0 * GW;
-    for (int r = tid; r < rows; r += blockDim.x)
-      tq[r] = (t_start[row0 + r] + t_end[row0 + r]) / 2.f;
-    for (int idx = tid; idx < rows * 3; idx += blockDim.x)
-      buf0[(idx / 3) * lda + idx % 3] = cot0[(idx / 3) * GW + lay.g(2 * L + 1) + idx % 3];
-    __syncthreads();
-    // colour head, C -> 3: masked by the colour hidden layer's ReLU
-    dense_bwd(buf0, lda, 3, layers.wt[2 * L + 1], C, buf1, lda, cot0 + lay.g(2 * L), GW,
-              m0 + lay.m_c0(), 0, nullptr, 0, false, rows);
-    __syncthreads();
-    // colour head, [hidden | dir_enc] -> C: the hidden part has no ReLU
-    dense_bwd(buf1, lda, C, layers.wt[2 * L], D, buf0, lda, cot0 + lay.g(2 * L - 1), GW,
-              nullptr, Q, enc_d, ldq, false, rows);
-    // the density column of the last segment layer, from the compositing pass
-    for (int r = tid; r < rows; r += blockDim.x)
-      buf0[r * lda + D] = cot0[r * GW + lay.g(2 * L - 1) + D];
-    __syncthreads();
-    // last segment layer, D -> D + 1
-    dense_bwd(buf0, lda, D + 1, layers.wt[2 * L - 1], D, buf1, lda, cot0 + lay.g(2 * L - 2),
-              GW, m0 + lay.m_h2(L - 2), 0, nullptr, 0, false, rows);
-    __syncthreads();
-    float* cur = buf1;
-    float* nxt = buf0;
-    for (int l = 2 * L - 2; l >= L + 1; --l) {
-      dense_bwd(cur, lda, D, layers.wt[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
-                m0 + lay.m_h2(l - 1 - L), 0, nullptr, 0, false, rows);
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-    // first layer of segment 2, [z | pos_enc] -> D: the inter-segment ReLU
-    dense_bwd(cur, lda, D, layers.wt[L], D, nxt, lda, cot0 + lay.g(L - 1), GW,
-              m0 + lay.m_h1(L - 1), P, enc_p, ldp, false, rows);
-    __syncthreads();
-    { float* t = cur; cur = nxt; nxt = t; }
-    for (int l = L - 1; l >= 1; --l) {
-      dense_bwd(cur, lda, D, layers.wt[l], D, nxt, lda, cot0 + lay.g(l - 1), GW,
-                m0 + lay.m_h1(l - 1), 0, nullptr, 0, false, rows);
-      __syncthreads();
-      float* t = cur; cur = nxt; nxt = t;
-    }
-    // first layer, pos_enc -> D
-    dense_bwd(cur, lda, D, layers.wt[0], 0, nullptr, 0, nullptr, 0, nullptr, P, enc_p, ldp,
-              true, rows);
-    __syncthreads();
-    // encoding backward: d_origs = sum_s d_pos, d_dirs = sum_s (t_q d_pos + d_dir)
-    if (tid < rows * 3) {
-      const int r = tid / 3, c = tid % 3;
-      const float p = __fadd_rn(o[c], __fmul_rn(tq[r], d[c]));
-      const float dp = encode_bwd(p, c, Lp, mask, scale, enc_p + r * ldp);
-      const float dd = encode_bwd(d[c], c, Ld, mask + Lp, scale, enc_d + r * ldq);
-      geo_o += dp;
-      geo_d += tq[r] * dp + dd;
-    }
-    __syncthreads();  // the next chunk overwrites tq and the buffers
-  }
-  if (tid < kGradRows) {
-    red[tid] = geo_o;
-    red[kGradRows + tid] = geo_d;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    float so = 0.f, sd = 0.f;
-    for (int t = tid; t < kGradRows; t += 3) {
-      so += red[t];
-      sd += red[kGradRows + t];
-    }
-    d_origs[ray * 3 + tid] = so;
-    d_dirs[ray * 3 + tid] = sd;
-  }
-}
-
-// ---- the tile route ----
 
 // fp32 arrays after the compute-type tiles, in this order: dens, logits, tq,
 // dist, comp, then bf16: the encodings' fp32 cotangents, geo, the staging
@@ -446,7 +100,7 @@ __host__ __device__ size_t train_floats(bool bf16, int P, int Q, int D, int C, i
 }
 
 // A layer's outputs in the fp32 tile's forward: acc + b, then the ReLU when
-// `relu`, into the shared tile (the FMA kernel's `dense`). With `words`, bit
+// `relu`, into the shared tile. With `words`, bit
 // (row & 31) of words[(row >> 5) * wld + col] is set where the stored value
 // is > 0, for the tile's live rows (its ReLU mask words, zero before the
 // layer; a thread's R rows lie in one 32-row part, and up to 32 / R threads
@@ -676,9 +330,9 @@ flagship_train_kernel(const float* __restrict__ origs, const float* __restrict__
       float* sj = comp + j * kComp;
       float carry = sj[0], ar = 0.f, ag = 0.f, ab = 0.f;
       if constexpr (!kBf16) {
-        // fp32 sums rgb as the FMA kernel does: each lane over all of the
-        // ray's 32-row chunks, then across the lanes. A ray that spans tiles
-        // is its block's only one, so warp 0's
+        // fp32 sums rgb in a fixed order whatever the tile: each lane over
+        // all of the ray's 32-row chunks, then across the lanes. A ray that
+        // spans tiles is its block's only one, so warp 0's
         if (tb + lo > j * S) {
           ar = lanes[lane];
           ag = lanes[32 + lane];
@@ -988,63 +642,23 @@ cudaError_t launch_tc(const float* origs, const float* dirs, const float* t_star
   return reduce(part, splits, all, grads, stream);
 }
 
-cudaError_t launch_fma(const float* origs, const float* dirs, const float* t_start,
-                       const float* t_end, const float* targets, const FmaLayers& layers,
-                       int n_rays, int S, int n_hidden, int D, int C, int Lp, int Ld,
-                       float scale, float alpha_pos, float alpha_dir, float density_scale,
-                       float grad_scale, float* act, float* cot, float* aux, unsigned* masks,
-                       float* part, int splits, float* grads, float* rgb_out, float* d_origs,
-                       float* d_dirs, float* weights_out, cudaStream_t stream) {
-  const int P = 3 + 6 * Lp, Q = 3 + 6 * Ld;
-  const Layout lay{P, Q, D, C, n_hidden + 1};
-  const size_t floats = round4(Lp + Ld) + 2 * kGradRows + 2 * kRows +
-                        static_cast<size_t>(kRows) *
-                            (2 * round4(D + 1) + round4(P) + round4(Q) + 3);
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
-  auto kernel = flagship_train_fma_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<n_rays, kThreads, bytes, stream>>>(
-      origs, dirs, t_start, t_end, targets, layers, S, n_hidden, D, C, Lp, Ld, scale,
-      alpha_pos, alpha_dir, density_scale, grad_scale, act, cot, aux, masks, rgb_out, d_origs,
-      d_dirs, weights_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const GemmPlan plan = make_plan(lay, static_cast<long long>(n_rays) * S, splits);
-  dim3 grid(plan.tiles, splits);
-  dw_partial_fma_kernel<<<grid, 256, 0, stream>>>(act, cot, plan, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  Segments all{};
-  all.n = 1;
-  all.begin[1] = plan.wtot + plan.btot;
-  return reduce(part, splits, all, grads, stream);
-}
-
 }  // namespace
 
 // Inputs: origs, dirs, targets (n_rays, 3); t_start, t_end (n_rays, S); the 2
 // (n_hidden + 1) + 2 layers in the order segment 1, segment 2, colour head;
-// tile_rows is the row tile kR, 64 or 32 (`train_megakernel.tile_rows`), or 0
-// for the FMA kernel (fp32 only). The tile route (bf16 != 0, or tile_rows
-// != 0): wb_ptrs are the backward B operands W^T packed by
+// tile_rows is the row tile kR, 64 or 32 (`train_megakernel.tile_rows`); any
+// other value is refused. wb_ptrs are the backward B operands W^T packed by
 // `train_megakernel.pack_b` (bf16, or fp32 TF32 hi / lo pairs); wf_ptrs the
 // forward B operands packed the same way in bf16, in fp32 the weights (in,
 // out) as they are with the row stride round4(out); w_density is W[:, D] of
 // the last segment layer in the compute type, which the forward operand of
-// that layer leaves out. The FMA kernel (bf16 == 0, tile_rows == 0): wf_ptrs
-// are the weights (in, out) and wb_ptrs the same transposed (out, in), fp32,
-// and w_density is unused. b_ptrs: the biases, fp32. grad_scale = 2
+// that layer leaves out. b_ptrs: the biases, fp32. grad_scale = 2
 // loss_scale / (n_rays 3). Workspaces: act (n_rays S, act_width) in the
 // compute type, cot (n_rays S, cot_width) fp32, aux (n_rays S, 6) fp32, masks
 // (halves, mask_width) 32-bit words with halves = blocks x
 // tiles_per_block(S, kR) x kR / 32, blocks = ceil(n_rays /
-// rays_per_block(S, kR)) (tile route) or n_rays ceil(S / 32) (FMA kernel),
-// part (splits, n_grads) fp32, with act_width / cot_width / mask_width as
-// `Layout` computes them. Outputs: grads (n_grads) = every layer's dW (in,
+// rays_per_block(S, kR)), part (splits, n_grads) fp32, with act_width /
+// cot_width / mask_width as `Layout` computes them. Outputs: grads (n_grads) = every layer's dW (in,
 // out) in layer order, then every db; rgb_out, d_origs, d_dirs (n_rays, 3);
 // weights_out (n_rays, S) or null.
 extern "C" int netpu_flagship_train(
@@ -1056,36 +670,23 @@ extern "C" int netpu_flagship_train(
     unsigned* masks, int act_width, int cot_width, float* part, int splits, float* grads,
     float* rgb_out, float* d_origs, float* d_dirs, float* weights_out, void* stream) {
   const Layout lay{3 + 6 * Lp, 3 + 6 * Ld, D, C, n_hidden + 1};
-  const bool tiled = bf16 || tile_rows != 0;
   if (n_hidden < 1 || n_layers != 2 * (n_hidden + 1) + 2 || n_layers > kMaxLayers ||
       act_width != lay.act_width() || cot_width != lay.cot_width() || splits < 1 ||
-      (tiled && tile_rows != 64 && tile_rows != 32))
+      (tile_rows != 64 && tile_rows != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tiled) {
-    TileWeights wts{};
-    for (int i = 0; i < n_layers; ++i) {
-      wts.fwd[i] = wf_ptrs[i];
-      wts.bwd[i] = wb_ptrs[i];
-      wts.b[i] = b_ptrs[i];
-    }
-    wts.w_density = w_density;
-    auto tc = bf16 ? (tile_rows == 64 ? launch_tc<true, 64> : launch_tc<true, 32>)
-                   : (tile_rows == 64 ? launch_tc<false, 64> : launch_tc<false, 32>);
-    return static_cast<int>(tc(origs, dirs, t_start, t_end, targets, wts, n_rays, S, n_hidden,
-                               D, C, Lp, Ld, scale, alpha_pos, alpha_dir, density_scale,
-                               grad_scale, act, cot, aux, masks, part, splits, grads, rgb_out,
-                               d_origs, d_dirs, weights_out, st));
-  }
-  FmaLayers layers{};
+  TileWeights wts{};
   for (int i = 0; i < n_layers; ++i) {
-    layers.w[i] = static_cast<const float*>(wf_ptrs[i]);
-    layers.b[i] = b_ptrs[i];
-    layers.wt[i] = static_cast<const float*>(wb_ptrs[i]);
+    wts.fwd[i] = wf_ptrs[i];
+    wts.bwd[i] = wb_ptrs[i];
+    wts.b[i] = b_ptrs[i];
   }
-  return static_cast<int>(launch_fma(
-      origs, dirs, t_start, t_end, targets, layers, n_rays, S, n_hidden, D, C, Lp, Ld, scale,
-      alpha_pos, alpha_dir, density_scale, grad_scale, static_cast<float*>(act), cot, aux,
-      masks, part, splits, grads, rgb_out, d_origs, d_dirs, weights_out, st));
+  wts.w_density = w_density;
+  auto tc = bf16 ? (tile_rows == 64 ? launch_tc<true, 64> : launch_tc<true, 32>)
+                 : (tile_rows == 64 ? launch_tc<false, 64> : launch_tc<false, 32>);
+  return static_cast<int>(tc(origs, dirs, t_start, t_end, targets, wts, n_rays, S, n_hidden, D,
+                             C, Lp, Ld, scale, alpha_pos, alpha_dir, density_scale, grad_scale,
+                             act, cot, aux, masks, part, splits, grads, rgb_out, d_origs, d_dirs,
+                             weights_out, st));
 }

@@ -9,8 +9,8 @@ rebuilds and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()`; `check` raises on a non-zero code. The
-helpers at the end (`check_tensor`, `check_rays`, `is_bf16`, `device_weights`,
-`pointers`) prepare the arguments the wrappers pass.
+helpers at the end (`check_tensor`, `check_rays`, `is_bf16`, `pointers`)
+prepare the arguments the wrappers pass.
 """
 from __future__ import annotations
 
@@ -201,15 +201,6 @@ def is_bf16(cfg) -> bool:
     if cfg.compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype {cfg.compute_dtype} is not supported")
     return cfg.compute_dtype == torch.bfloat16
-
-
-def device_weights(layers, dev, bf16: bool):
-    """The layers' weights in the compute type and fp32 biases, contiguous on
-    `dev`."""
-    wdt = torch.bfloat16 if bf16 else torch.float32
-    ws = [l.w.detach().to(dev, wdt).contiguous() for l in layers]
-    bs = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
-    return ws, bs
 
 
 def pointers(tensors) -> ctypes.c_void_p:

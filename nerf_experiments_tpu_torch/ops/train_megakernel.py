@@ -14,20 +14,19 @@ A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel,
 or the call raises. The render kernel runs its products on the tensor cores
 in both compute types; they take each layer's B operand packed in fragment
 order (`pack_b`): bf16, or fp32 split into TF32 hi / lo pairs for the 3xTF32
-products. The train kernel has three routes (`train_route`): the bf16 tile
-(every product on the tensor cores), the fp32 tile (the forward on the CUDA
-cores in the FMA kernel's order of adds, with W as it is at a row stride of
-a multiple of 4; the backward's g W^T as 3xTF32 on the tensor cores) and,
-for fp32 widths too wide for a tile whose block still fits, the FMA kernel
-(W as it is and transposed). `flagship_train_grads.route_launches` counts
-the launches of each.
+products. The train kernel has two routes (`train_route`), chosen by the
+compute type: the bf16 tile (every product on the tensor cores) and the
+fp32 tile (the forward on the CUDA cores in a plain fp32 GEMM's order of
+adds, with W as it is at a row stride of a multiple of 4; the backward's g
+W^T as 3xTF32 on the tensor cores).
 
-The tile kernels serve any hidden width D and colour width C (padded to 16
+The kernels serve any hidden width D and colour width C (padded to 16
 inside); their row tile is 64 sample rows, or 32 where a 64-row tile's
-shared memory would pass the block's 227 KB (`tile_rows`). Wider layers
-than a 32-row render tile holds (D > ~600) take no kernel: `kernels_fit` is
-False and `systems.barf.can_fuse_train_step` / `use_fused_render` send such
-configs down the plain route.
+shared memory would pass the block's 227 KB (`tile_rows`). Layers wider
+than a 32-row tile holds (at the flagship encodings, to train D > 623 in
+fp32 and D > 672 in bf16; to render D > 639 in fp32) take no kernel:
+`kernels_fit` is False and `systems.barf.can_fuse_train_step` /
+`use_fused_render` send such configs down the plain route.
 """
 from __future__ import annotations
 
@@ -41,7 +40,7 @@ from nerf_experiments_tpu_torch.encodings.fourier import Barf
 from nerf_experiments_tpu_torch.models import nerf_mlp
 from nerf_experiments_tpu_torch.ops import cuda_build, render, sampling
 from nerf_experiments_tpu_torch.ops.cuda_build import (
-    check_rays, device_weights, is_bf16, pointers)
+    check_rays, is_bf16, pointers)
 from nerf_experiments_tpu_torch.ops.render import DENSITY_SCALE
 
 
@@ -73,7 +72,7 @@ def _round4(x: int) -> int:
 def tile_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, rows: int,
                     train: bool = False) -> int:
     """Shared memory of a block of the render kernel (train=False) or of the
-    train kernel's tile route (train=True) with a `rows`-row tile: `TileSmem`
+    train kernel (train=True) with a `rows`-row tile: `TileSmem`
     (two activation tiles, the two encodings, the warps' weight rings) and
     the kernel's fp32 arrays (`render_floats`, `train_floats` in csrc/). The
     fp32 train tile keeps its cotangents in its own tiles, so its fp32 arrays
@@ -95,17 +94,8 @@ def tile_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, rows: int,
     return tiles + ring + 4 * floats
 
 
-def fma_smem_bytes(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> int:
-    """Shared memory of a block of the train kernel's FMA kernel (fp32 widths
-    too wide for a tile)."""
-    lp, ld = cfg.position_encoder.levels, cfg.direction_encoder.levels
-    P, Q = 3 + 6 * lp, 3 + 6 * ld
-    return 4 * (_round4(lp + ld) + 2 * 96 + 2 * 32
-                + 32 * (2 * _round4(D + 1) + _round4(P) + _round4(Q) + 3))
-
-
 def tile_rows(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, train: bool = False) -> Optional[int]:
-    """The row tile of the render kernel (or the train kernel's tile route):
+    """The row tile of the render kernel (with `train`, the train kernel's):
     the first of `TILE_ROWS` whose block fits in `SMEM_LIMIT`, else None (no
     tile for these widths)."""
     for rows in TILE_ROWS:
@@ -114,21 +104,17 @@ def tile_rows(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int, train: bool = False) 
     return None
 
 
-TRAIN_ROUTES = ("tile_bf16", "tile_fp32", "fma")
+TRAIN_ROUTES = ("tile_bf16", "tile_fp32")
 
 
 def train_route(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int) -> Optional[Tuple[str, int]]:
-    """The train kernel's route for these widths in cfg's compute type, from
-    the shared memory its block needs: ("tile_bf16" or "tile_fp32", the row
-    tile), ("fma", None) for fp32 widths whose 32-row tile does not fit but
-    whose FMA block does, else None (no kernel: the plain route)."""
-    bf16 = is_bf16(cfg)
+    """The train kernel's route for these widths: ("tile_bf16" or
+    "tile_fp32", by cfg's compute type, and the row tile `tile_rows` gives),
+    else None (no tile fits: the plain route)."""
     rows = tile_rows(cfg, D, C, train=True)
-    if rows is not None:
-        return ("tile_bf16" if bf16 else "tile_fp32"), rows
-    if not bf16 and fma_smem_bytes(cfg, D, C) <= SMEM_LIMIT:
-        return "fma", None
-    return None
+    if rows is None:
+        return None
+    return ("tile_bf16" if is_bf16(cfg) else "tile_fp32"), rows
 
 
 def kernels_fit(cfg: nerf_mlp.NerfMLPConfig, train: bool = False) -> bool:
@@ -461,13 +447,10 @@ def _train_layout(cfg: nerf_mlp.NerfMLPConfig, D: int, C: int):
     return P + Q + 2 * L * D + C, 2 * L * D + 1 + C + 3, (2 * L - 1) * D + C
 
 
-def _mask_halves(n_rays: int, n_samples: int, rows: Optional[int]) -> int:
-    """32-row groups of the ReLU mask words. The tile route (`rows`, its row
-    tile): the 32-row parts of the row tiles, a block taking rows // S rays
-    (one when S > rows) in ceil(rays * S / rows) tiles of `rows` rows; the
-    FMA kernel (rows None): 32-row chunks of each ray."""
-    if rows is None:
-        return n_rays * math.ceil(n_samples / 32)
+def _mask_halves(n_rays: int, n_samples: int, rows: int) -> int:
+    """32-row groups of the ReLU mask words: the 32-row parts of the row
+    tiles (`rows` rows each), a block taking rows // S rays (one when S >
+    rows) in ceil(rays * S / rows) tiles."""
     rays = max(1, rows // n_samples)
     return math.ceil(n_rays / rays) * math.ceil(rays * n_samples / rows) * (rows // 32)
 
@@ -476,11 +459,11 @@ def train_workspace_bytes(cfg: nerf_mlp.NerfMLPConfig, n_rays: int, n_samples: i
                           D: int, C: int) -> int:
     """Device memory `flagship_train_grads` allocates for its workspaces:
     activations (compute type), cotangents and the compositing record (fp32)
-    per sample row, and ReLU mask words per 32 rows (`_mask_halves`, with
-    the route of `train_route`; widths with no route are counted as a
+    per sample row, and ReLU mask words per 32 rows (`_mask_halves`, on
+    the row tile of `tile_rows`; widths with no tile are counted as a
     64-row tile)."""
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
-    rows = (train_route(cfg, D, C) or (None, TILE_ROWS[0]))[1]
+    rows = tile_rows(cfg, D, C, train=True) or TILE_ROWS[0]
     return (n_rays * n_samples * (act_w * (2 if is_bf16(cfg) else 4) + (cot_w + 6) * 4)
             + _mask_halves(n_rays, n_samples, rows) * mask_w * 4)
 
@@ -538,19 +521,16 @@ def flagship_train_grads(
     if route is None:
         raise ValueError(f"the flagship train kernel has no block for hidden width {D} "
                          f"(colour {C}): such configs take the plain route")
-    name, tile = route
+    _, tile = route
     lib = cuda_build.library()
-    if name == "tile_bf16":  # packed B operands
+    if bf16:  # packed B operands
         wf, wb, bs, w_density = packed_weights(params, cfg, dev, backward=True)
-    elif name == "tile_fp32":  # W as it is for the CUDA cores, W^T packed (TF32 hi / lo)
+    else:  # W as it is for the CUDA cores, W^T packed (TF32 hi / lo)
         last = 2 * cfg.n_hidden + 1
         wf, w_density = _fp32_tile_weights(layers, last, D, dev)
         wb = pack_layers([l.w for l in layers], _layer_parts(cfg, D, C), last, False, True,
                          dev, forward=False)[1]
         bs = [l.b.detach().to(dev, torch.float32).contiguous() for l in layers]
-    else:  # the FMA kernel: W (in, out) and W^T
-        wf, bs = device_weights(layers, dev, False)
-        wb, w_density = [w.t().contiguous() for w in wf], None
     act_w, cot_w, mask_w = _train_layout(cfg, D, C)
     rows = n * s
     # phase B splits the rows into fixed partials, added in a fixed order
@@ -574,8 +554,7 @@ def flagship_train_grads(
         code = lib.netpu_flagship_train(
             origs.data_ptr(), dirs.data_ptr(), t_start.data_ptr(), t_end.data_ptr(),
             targets.data_ptr(), pointers(wf), pointers(wb), pointers(bs),
-            None if w_density is None else w_density.data_ptr(), len(layers), int(bf16),
-            tile or 0, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
+            w_density.data_ptr(), len(layers), int(bf16), tile, n, s, cfg.n_hidden, D, C, pe.levels, de.levels,
             float(pe.scale), float(alpha_pos), float(alpha_dir), float(density_scale),
             2.0 * float(loss_scale) / (n * 3.0), act.data_ptr(), cot.data_ptr(),
             aux.data_ptr(), masks.data_ptr(), act_w, cot_w, part.data_ptr(), splits,
@@ -584,7 +563,6 @@ def flagship_train_grads(
             None if weights is None else weights.data_ptr(), stream)
     cuda_build.check(code, "netpu_flagship_train")
     flagship_train_grads.launches += 1
-    flagship_train_grads.route_launches[name] += 1
 
     # flat = every dW (in, out) in layer order, then every db
     grads, w_off, b_off = {}, 0, sum(l.w.numel() for l in layers)
@@ -598,5 +576,3 @@ def flagship_train_grads(
 
 
 flagship_train_grads.launches = 0
-# launches by route (`train_route`): a run shows which route each width took
-flagship_train_grads.route_launches = dict.fromkeys(TRAIN_ROUTES, 0)

@@ -18,9 +18,9 @@ them against their plain versions on the H100):
   * widths: hidden and colour widths that are not multiples of 16 (packed
     zero-padded, read back against the JAX kernels), the row tile each width
     takes and the shared memory behind it (`tile_rows`), the train kernel's
-    route at each width (`train_route`: the bf16 or fp32 tile, the FMA
-    kernel, none) and its per-route launch counter, and the configs too
-    wide for any tile routed to the plain step (`can_fuse_train_step`);
+    route at each width (`train_route`: the bf16 or fp32 tile by the compute
+    type, or none) and its launch counter, and the configs too wide for any
+    tile routed to the plain step (`can_fuse_train_step`);
   * `packed_weights`' one gather against `pack_b` per operand, and the render
     kernel's cache of packed weights (`render_weights`);
   * `NerfMLPDef.full_alphas` with an `Identity` direction encoder (0 levels,
@@ -349,13 +349,12 @@ def test_tile_rows_follow_the_shared_memory_limit(hidden, rows_fp32, rows_bf16, 
 def test_tile_smem_bytes_is_pinned_at_the_flagship_width():
     """The sizes `TileSmem` and the kernels' fp32 arrays give in csrc/ for
     4x256 (colour 128), P = 63, Q = 27: the fp32 render tile, the bf16
-    render tile, the bf16 train tile, and the FMA train block."""
+    render tile and the bf16 train tile (and its 32-row tile at 512)."""
     f32, b16 = flagship_tcfg(False), flagship_tcfg(True)
     assert ttrain.tile_smem_bytes(f32, 256, 128, 64) == 220_736
     assert ttrain.tile_smem_bytes(b16, 256, 128, 64) == 122_432
     assert ttrain.tile_smem_bytes(b16, 256, 128, 64, train=True) == 217_152
     assert ttrain.tile_smem_bytes(b16, 512, 256, 32, train=True) == 190_528
-    assert ttrain.fma_smem_bytes(f32, 256, 128) == 79_808
 
 
 @pytest.mark.parametrize("hidden,fits_render,fits_train", [
@@ -441,7 +440,7 @@ def rel_norm(a, b) -> float:
 @pytest.mark.parametrize("hidden_dim,n_hidden", [(256, 4), (48, 1), (100, 2)])
 def test_fp32_tile_emulation_meets_the_fp32_tolerance_against_jax(hidden_dim, n_hidden):
     """The fp32 tile's numbers before any chip run: its forward is the plain
-    fp32 one (the kernel adds in the FMA kernel's order), only g W^T runs as
+    fp32 one (the kernel adds in a plain fp32 GEMM's order), only g W^T runs as
     3xTF32. Held to the JAX fp32 train kernel by relative norm at
     `chip_smoke.TOL_K4_FP32`, as phase 7 holds the kernel on the card."""
     jcfg, tcfg = cfgs(n_hidden=n_hidden, hidden_dim=hidden_dim)
@@ -494,11 +493,11 @@ def test_fp32_train_tile_smem_is_pinned():
     (272, ("tile_fp32", 32), ("tile_bf16", 64), True),
     (512, ("tile_fp32", 32), ("tile_bf16", 32), True),
     (620, ("tile_fp32", 32), ("tile_bf16", 32), True),
-    # fp32 past the 32-row tile: the FMA kernel, which the fused step reaches
-    # up to the render tile's last width (639)
-    (624, ("fma", None), ("tile_bf16", 32), True),
-    (639, ("fma", None), ("tile_bf16", 32), True),
-    (640, ("fma", None), ("tile_bf16", 32), False),
+    # fp32 past the 32-row tile: no kernel, so the plain step, though the
+    # render tile reaches 639
+    (624, None, ("tile_bf16", 32), False),
+    (639, None, ("tile_bf16", 32), False),
+    (640, None, ("tile_bf16", 32), False),
     (860, None, None, False),
     (1024, None, None, False),
 ])
@@ -507,25 +506,24 @@ def test_train_route_by_width(hidden, fp32, bf16, fused):
     C = hidden // 2
     assert ttrain.train_route(f32, hidden, C) == fp32
     assert ttrain.train_route(b16, hidden, C) == bf16
-    if fp32 == ("fma", None):
-        assert ttrain.fma_smem_bytes(f32, hidden, C) <= ttrain.SMEM_LIMIT
-        assert ttrain.tile_smem_bytes(f32, hidden, C, 32, train=True) > ttrain.SMEM_LIMIT
     cfg = tbarf.BarfConfig(radiance=f32, n_training_images=2, samples_per_ray_radiance=8)
     assert tbarf.can_fuse_train_step(cfg) == fused
 
 
 def test_route_launches_count_each_route():
-    """One counter a route that `train_route` can name; the plain version
-    (CPU tensors) launches nothing, so counts nothing."""
-    counts = ttrain.flagship_train_grads.route_launches
-    assert tuple(counts) == ttrain.TRAIN_ROUTES == ("tile_bf16", "tile_fp32", "fma")
-    before = dict(counts)
-    _, tcfg = cfgs(hidden_dim=32)
-    params = tmlp.init(torch.Generator().manual_seed(0), tcfg)
-    o, d, ts, te, targets = inputs(2, 8, seed=0)
-    ttrain.flagship_train_grads(params, tcfg, *map(torch.as_tensor, (o, d, ts, te, targets)),
-                                3.0, 1.5)
-    assert ttrain.flagship_train_grads.route_launches == before
+    """`train_route` names one route a compute type, counted by the one
+    `launches` counter; the plain version (CPU tensors) launches nothing, so
+    counts nothing."""
+    assert ttrain.TRAIN_ROUTES == ("tile_bf16", "tile_fp32")
+    before = ttrain.flagship_train_grads.launches
+    for bf16 in (False, True):
+        _, tcfg = cfgs(hidden_dim=32, bf16=bf16)
+        assert ttrain.train_route(tcfg, 32, 16)[0] == ("tile_bf16" if bf16 else "tile_fp32")
+        params = tmlp.init(torch.Generator().manual_seed(0), tcfg)
+        o, d, ts, te, targets = inputs(2, 8, seed=0)
+        ttrain.flagship_train_grads(params, tcfg, *map(torch.as_tensor, (o, d, ts, te, targets)),
+                                    3.0, 1.5)
+    assert ttrain.flagship_train_grads.launches == before
 
 
 @pytest.mark.parametrize("n,s,rows,halves", [
@@ -533,8 +531,8 @@ def test_route_launches_count_each_route():
     (1024, 32, 64, 1024),
     (333, 100, 64, 1332),  # one ray a block, 2 tiles of 64 rows
     (333, 100, 32, 1332),  # one ray a block, 4 tiles of 32 rows
-    (255, 128, None, 1020),  # the FMA kernel: 32-row chunks of each ray
-    (255, 100, None, 1020),
+    (255, 128, 64, 1020),  # one ray a block, 2 tiles of 64 rows
+    (255, 128, 32, 1020),  # one ray a block, 4 tiles of 32 rows
 ])
 def test_mask_halves_follow_the_route(n, s, rows, halves):
     assert ttrain._mask_halves(n, s, rows) == halves
@@ -542,14 +540,15 @@ def test_mask_halves_follow_the_route(n, s, rows, halves):
 
 def test_fp32_tile_workspace_packs_rays_by_the_tile():
     """fp32 at S = 32 packs two rays a 64-row tile (mask words per tile
-    half), where the FMA kernel took one ray a block."""
+    half); a width on the 32-row tile takes one ray a block at S = 100."""
     cfg = flagship_tcfg(False)
     act_w, cot_w, mask_w = ttrain._train_layout(cfg, 256, 128)
     assert ttrain.train_workspace_bytes(cfg, 1023, 32, 256, 128) == \
         1023 * 32 * (act_w * 4 + (cot_w + 6) * 4) + 1024 * mask_w * 4 == 727_010_816
-    wide = flagship_tcfg(False, 640)
-    act_w, cot_w, mask_w = ttrain._train_layout(wide, 640, 320)
-    assert ttrain.train_workspace_bytes(wide, 255, 100, 640, 320) == \
+    wide = flagship_tcfg(False, 512)
+    act_w, cot_w, mask_w = ttrain._train_layout(wide, 512, 256)
+    assert ttrain.train_route(wide, 512, 256) == ("tile_fp32", 32)
+    assert ttrain.train_workspace_bytes(wide, 255, 100, 512, 256) == \
         255 * 100 * (act_w * 4 + (cot_w + 6) * 4) + 255 * 4 * mask_w * 4
 
 

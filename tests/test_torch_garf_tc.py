@@ -14,7 +14,7 @@ them against their plain versions on the H100):
     interpret mode at the fp32 tolerance `chip_smoke.py` holds K5 to (1e-4
     relative norm), for every family and gamma of `chip_smoke.GARF_FAMILIES`.
     The net has no ReLU whose mask a product's 2^-21 error could flip, which
-    is what keeps the flagship's K4 on FMA loops;
+    is what keeps the flagship K4's fp32 forward off the tensor cores;
   * the row tile and shared memory (`tile_rows`, `tile_smem_bytes`, pinned to
     `GarfSmem` in csrc/garf_common.cuh) and `train_workspace_bytes`, pinned;
   * the render wrapper's cache of packed weights (`render_weights`).
