@@ -18,8 +18,8 @@ Phases, each raising on failure:
   4. run the serving entry point `render_views.main` end to end on a
      generated synthetic scene for the dense flagship config (fp32) and the
      north-star hierarchical config (bf16), check the PSNR is finite, that
-     the kernels were launched, and that a crop of the render agrees with the
-     plain CPU path;
+     the kernels were launched (K2; north-star also the proposal kernel),
+     and that a crop of the render agrees with the plain CPU path;
   5. time kernel and plain paths at the 8192-ray serving chunk: the
      compositing kernel by its `torch.profiler` device time per call on
      inputs rotated past the L2 (`cold_copies`), the rest with CUDA events;
@@ -128,7 +128,8 @@ Phases, each raising on failure:
      and north_star_occ_S32_blk4 fused steps, bf16 and fp32, against the same
      steps with every kernel's plain version (`plain_kernels`);
      `render_block_coarse` with block 1 bitwise equal to the deterministic
-     `forward` (kernels on) and with block 4 against its plain version;
+     `forward` (kernels on) and with block 4 against its plain version (the
+     proposal kernel's included);
      `run_barf --train_coarse_block 4` trains and resumes;
  28. block-coarse GARF (garf_fused_blk4): the fused step with
      train_coarse_block 4 against its plain-kernel version (gauss fp32, gabor
@@ -177,7 +178,13 @@ Phases, each raising on failure:
      deterministic algorithms), the same run under `torchrun --standalone
      --nproc_per_node=1`, and the fused north-star step at 8192 rays with
      and without a one-rank mesh (A, B, B, A) beside its two all-reduces
-     alone (`sync_grads`, `sync_metrics`).
+     alone (`sync_grads`, `sync_metrics`);
+ 38. hold the serving proposal kernel (`ops/proposal_bins.py`) against its
+     plain version (the eager stage: cuBLAS GEMMs, K1, the PDF resample) at
+     the north-star chunk, 8192 rays x 64 bins -> 32, every level on and
+     fractional alphas: the coarse rgb and the fine bins; time both (the
+     kernel by its `torch.profiler` device time per call, the plain stage
+     with CUDA events) beside the kernel's bound.
 
 Each phase prints its wall time. The second-to-last line of stdout is a JSON
 summary of the kernels (`max_abs_err` is the largest absolute difference
@@ -420,6 +427,7 @@ def phase_slice(dev, workdir):
     import numpy as np
 
     from nerf_experiments_tpu_torch.experiments import render_views, run_barf
+    from nerf_experiments_tpu_torch.ops.proposal_bins import proposal_bins
     from nerf_experiments_tpu_torch.ops.render_cuda import render_fwd_cuda
     from nerf_experiments_tpu_torch.ops.train_megakernel import flagship_render
     from nerf_experiments_tpu_torch.systems import barf as barf_sys
@@ -442,15 +450,17 @@ def phase_slice(dev, workdir):
                 "--out_dir", os.path.join(workdir, name)] + common
         render_fwd_cuda.launches = 0
         flagship_render.launches = 0
+        proposal_bins.launches = 0
         summary = render_views.main(argv)
         torch.cuda.synchronize()
         launches[name] = {"flagship_render": flagship_render.launches,
-                          "render_fwd": render_fwd_cuda.launches}
+                          "render_fwd": render_fwd_cuda.launches,
+                          "proposal_bins": proposal_bins.launches}
         log(f"slice {name}: mean_psnr {summary['mean_psnr']} launches {launches[name]}")
         require(math.isfinite(summary["mean_psnr"]), f"{name}: mean_psnr not finite")
         require(flagship_render.launches > 0, f"{name}: flagship_render never launched")
-        if name == "northstar":
-            require(render_fwd_cuda.launches > 0, "northstar: compositing never launched")
+        if name == "northstar":  # its serving stage composites inside the proposal kernel
+            require(proposal_bins.launches > 0, "northstar: proposal_bins never launched")
 
         # a crop of view 0 through the kernels vs the plain path on the CPU
         dm.setup("test")
@@ -1051,6 +1061,61 @@ def phase_timing(dev, exps):
                 f"{N_RAYS / k * 1e3:.0f} rays/s; plain path {p:.4f} ms = "
                 f"{N_RAYS / p * 1e3:.0f} rays/s")
     return times
+
+
+# The proposal kernel against the plain stage, as tests/test_torch_proposal_bins.py
+# holds it: bf16 roundings flip where the tensor cores add in another order
+# than cuBLAS, moving the coarse rgb and the fine bins' edges a little.
+TOL_PROPOSAL_RGB = 5e-4
+TOL_PROPOSAL_T = 2e-3
+
+
+def phase_proposal_bins(dev):
+    """The serving proposal kernel against its plain version at the north-star
+    chunk (8192 rays x 64 bins -> 32 fine bins), every level on and
+    fractional alphas: the coarse rgb and the fine bins (max abs), two
+    launches bitwise equal; then the kernel's device time per call and the
+    plain stage's CUDA-event time. Returns (worst error, (kernel ms, plain
+    ms))."""
+    from nerf_experiments_tpu_torch.experiments import run_barf
+    from nerf_experiments_tpu_torch.ops import proposal_bins as pb
+    from nerf_experiments_tpu_torch.systems import barf as barf_sys
+
+    cfg, _ = run_barf.build_config(run_barf.parse_args(
+        ["--image_size", str(IMAGE_SIZE), "--seed", "7"] + NORTHSTAR))
+    require(barf_sys.can_fuse_proposal(cfg), "north-star: the proposal kernel refuses it")
+    params = barf_sys.init(torch.Generator().manual_seed(5), cfg).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    origs, dirs = random_rays(N_RAYS, gen, dev)
+
+    def call(fn, a_pos=A_POS, a_dir=A_DIR):
+        return fn(params.proposal, cfg.proposal, origs, dirs, cfg.near, cfg.far,
+                  cfg.samples_per_ray_proposal, cfg.samples_per_ray_radiance, a_pos, a_dir)
+
+    worst = 0.0
+    with torch.no_grad():
+        for a_pos, a_dir in ((A_POS, A_DIR), (6.5, 2.5), (0.0, A_DIR)):
+            got = call(pb.proposal_bins, a_pos, a_dir)
+            ref = call(pb.proposal_bins_reference, a_pos, a_dir)
+            torch.cuda.synchronize()
+            rgb_err = max_err(got[0], ref[0])
+            t_err = max(max_err(got[1], ref[1]), max_err(got[2], ref[2]))
+            log(f"proposal_bins {N_RAYS}x{cfg.samples_per_ray_proposal} -> "
+                f"{cfg.samples_per_ray_radiance} bf16 alphas {a_pos} / {a_dir}: max abs err "
+                f"rgb_coarse {rgb_err:.3e} (tol {TOL_PROPOSAL_RGB}), bins {t_err:.3e} (tol "
+                f"{TOL_PROPOSAL_T})")
+            require(rgb_err <= TOL_PROPOSAL_RGB and t_err <= TOL_PROPOSAL_T,
+                    f"proposal_bins alphas {a_pos} / {a_dir}: rgb {rgb_err}, bins {t_err}")
+            worst = max(worst, rgb_err, t_err)
+        first, again = call(pb.proposal_bins), call(pb.proposal_bins)
+        require(all(torch.equal(a, b) for a, b in zip(first, again)),
+                "proposal_bins: two launches differ")
+        k = device_ms(lambda: call(pb.proposal_bins), calls=100)
+        p = cuda_time_ms(lambda: call(pb.proposal_bins_reference), iters=20)
+    log(f"time proposal_bins {N_RAYS}x{cfg.samples_per_ray_proposal} -> "
+        f"{cfg.samples_per_ray_radiance} bf16: kernel {k:.4f} ms (device time per call), "
+        f"plain stage {p:.4f} ms (CUDA events)")
+    return worst, (k, p)
 
 
 GARF_FAMILIES = (("gauss", 1.0), ("gabor", 1.0), ("gabor", 0.37), ("sarf", 1.0),
@@ -2532,19 +2597,21 @@ def add_launches(total: dict, launches: dict) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels(compositing: bool = True):
-    """The flagship train and render kernels and the GARF train kernel (and,
-    with `compositing`, the compositing kernels) replaced by their plain
-    versions on any device: the reference of a step or render that has no
-    plain counterpart of its own (block-coarse)."""
+    """The flagship train and render kernels, the serving proposal kernel
+    and the GARF train kernel (and, with `compositing`, the compositing
+    kernels) replaced by their plain versions on any device: the reference of
+    a step or render that has no plain counterpart of its own (block-coarse)."""
     from unittest import mock
 
-    from nerf_experiments_tpu_torch.ops import garf_megakernel, render, train_megakernel
+    from nerf_experiments_tpu_torch.ops import (
+        garf_megakernel, proposal_bins, render, train_megakernel)
     from nerf_experiments_tpu_torch.systems import barf, garf_system
 
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (barf, "flagship_train_grads", train_megakernel.flagship_train_grads_reference),
                 (barf, "flagship_render", train_megakernel.flagship_render_reference),
+                (barf, "proposal_bins", proposal_bins.proposal_bins_reference),
                 (garf_system, "garf_radiance_train_grads",
                  garf_megakernel.garf_radiance_train_grads_reference),
                 (render, "render_rays_auto", render.render_rays if compositing else None)):
@@ -3921,6 +3988,13 @@ def kernel_bounds():
     # K11: K2's work at 8192 x 128 (rays and offsets in, rgb out)
     out["render_megakernel"] = bound(f32 * N_RAYS * (6 + 1 + 3), 3 * 2 * macs * N_RAYS * 128,
                                      TF32_FLOP_PER_S)
+    # the serving proposal kernel at the north-star chunk (8192 x 64 -> 32):
+    # rays in, the fine bins and the coarse rgb out; the 64x1 proposal net's
+    # multiply-adds (11,200 a point) at the bf16 rate
+    prop = nerf_mlp.init(torch.Generator().manual_seed(0),
+                         flagship_cfg(True, hidden_dim=64, n_hidden=1, n_segments=1))
+    out["proposal_bins"] = bound(f32 * N_RAYS * (6 + 2 * 32 + 3),
+                                 2 * weight_count(prop) * N_RAYS * 64, BF16_FLOP_PER_S)
     return out
 
 
@@ -4004,9 +4078,11 @@ def main() -> int:
         add_launches(mesh_launches, entry_launches)
         modules.update(rates)
         log(json.dumps({"modules": modules}))
+        proposal_err, proposal_times = run(38, phase_proposal_bins, dev)
 
     # ms / plain_ms: device time per call (torch.profiler) for K1 and K3
-    # (inputs rotated past the L2), K7 and K8 (table in L2), CUDA events per
+    # (inputs rotated past the L2), K7 and K8 (table in L2) and the proposal
+    # kernel (8192 x 64 -> 32; its plain stage by CUDA events), CUDA events per
     # call for K2, K4, K5 (4096 x 192), K6 (8192 x 192), K11 (8192 x 128) and
     # K9 / K10 (the three chains' calls summed, 262,144 rows);
     # library_ms: the PyTorch call that does K7's / K8's table access alone,
@@ -4085,6 +4161,12 @@ def main() -> int:
          "replaces": "nerf_experiments_tpu/ops/render_megakernel.py:73",
          "launches": mip_launches["render_megakernel"], "max_abs_err": k11_err,
          "ms": mip_times["K11"][0], "plain_ms": mip_times["K11"][1]},
+        {"name": "proposal_bins", "route": "cuda",
+         "source": "nerf_experiments_tpu_torch/csrc/proposal_bins.cu",
+         "replaces": "none: the XLA coarse stage of nerf_experiments_tpu/systems/barf.py "
+                     "forward, fused with K1's forward",
+         "launches": launches["northstar"]["proposal_bins"], "max_abs_err": proposal_err,
+         "ms": proposal_times[0], "plain_ms": proposal_times[1]},
     ]}
     bounds = kernel_bounds()
     # K9 / K10: the three chains as cuBLAS `addmm` + ReLU calls (a chain of

@@ -80,6 +80,10 @@ SIGNATURES = {
     # x, g, wf_ptrs, wb_ptrs, b_ptrs, dims (host), n_layers, bf16, tile_rows,
     # n_rows, act, cot, act_width, cot_width, part, splits, dx, grads, stream
     "netpu_fused_mlp_bwd": [_P] * 6 + [_I, _I, _I, _L, _P, _P, _I, _I, _P, _I, _P, _P, _P],
+    # origs, dirs, edges, w_ptrs, b_ptrs, n_layers, n_rays, B, S, D, n_hidden,
+    # levels_pos, levels_dir, scale_pos, scale_dir, alpha_pos, alpha_dir,
+    # density_scale, far, t_start, t_end, rgb, stream
+    "netpu_proposal_bins": [_P] * 5 + [_I] * 8 + [_F] * 6 + [_P] * 4,
 }
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
+import traceback
 from typing import Callable, Sequence
 
 import torch.distributed as dist
@@ -28,8 +29,44 @@ def _rank_entry(rank: int, fn: Callable, world_size: int, init_file: str, backen
                             timeout=datetime.timedelta(seconds=group_timeout_s))
     try:
         fn(rank, world_size, *args)
+    except BaseException:
+        _record_first_failure(init_file, rank)
+        raise
     finally:
         dist.destroy_process_group()
+
+
+def _first_failure_file(init_file: str) -> str:
+    return f"{init_file}.failed"
+
+
+def _record_first_failure(init_file: str, rank: int) -> None:
+    """The traceback being handled, written unless a rank wrote first. A
+    failing rank writes before its group goes down, so a peer blocked in a
+    collective, which fails only on the closed connection, never writes
+    first."""
+    try:
+        fd = os.open(_first_failure_file(init_file), os.O_WRONLY | os.O_CREAT | os.O_EXCL)
+    except FileExistsError:
+        return
+    with os.fdopen(fd, "w") as f:
+        f.write(f"rank {rank} failed first:\n{traceback.format_exc()}")
+
+
+def _join(ctx, init_file: str, deadline: float) -> bool:
+    """`ctx.join` for at most 5 s (True once every rank has finished). A
+    rank's failure is raised as the first failing rank's: join names whichever
+    failed rank it saw first, which can be a peer that failed on the first
+    one's closed connection."""
+    try:
+        return ctx.join(timeout=max(0.1, min(5.0, deadline - time.monotonic())))
+    except mp.ProcessRaisedException as err:
+        try:
+            with open(_first_failure_file(init_file)) as f:
+                first = f.read()
+        except FileNotFoundError:
+            raise err from None
+        raise RuntimeError(first) from err
 
 
 def run_ranks(fn: Callable, world_size: int, args: Sequence = (), *, init_file: str,
@@ -46,7 +83,7 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), *, init_file: 
         nprocs=world_size, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
     # join raises as soon as any rank fails, after terminating the others
-    while not ctx.join(timeout=max(0.1, min(5.0, deadline - time.monotonic()))):
+    while not _join(ctx, init_file, deadline):
         if time.monotonic() >= deadline:
             for p in ctx.processes:
                 if p.is_alive():

@@ -19,9 +19,12 @@ kernel (`ops/train_megakernel.py:flagship_render`, no gradient: eval and
 serving). `train_step_fused` runs it through the flagship train kernel
 (`flagship_train_grads`), which returns the radiance net's gradients and the
 geometry gradients that torch autograd chains into the camera parameters.
-Either way the proposal stage of a hierarchical config runs its small MLP as
-plain torch (under autograd when training) and composites through the
-compositing kernels (`ops/render.py:render_rays_auto`).
+Training runs the proposal stage of a hierarchical config as plain torch
+under autograd, compositing through the compositing kernels
+(`ops/render.py:render_rays_auto`); `forward(..., fused=True)` on
+deterministic bins runs it as one launch of the proposal kernel
+(`ops/proposal_bins.py`) where `can_fuse_proposal(cfg)`, and as the same
+plain stage elsewhere.
 
 The train steps update the state in place (parameters, Adam state, step) and
 return it, with metrics as device scalars. Given a mesh (`parallel/mesh.py`,
@@ -48,6 +51,8 @@ from nerf_experiments_tpu_torch.models.common import ParamGroup, softplus8
 from nerf_experiments_tpu_torch.ops import occgrid, render, sampling
 from nerf_experiments_tpu_torch.ops.fused_mlp import fused_chain
 from nerf_experiments_tpu_torch.ops.metrics import psnr
+from nerf_experiments_tpu_torch.ops.proposal_bins import kernel_fits as proposal_kernel_fits
+from nerf_experiments_tpu_torch.ops.proposal_bins import proposal_bins
 from nerf_experiments_tpu_torch.ops.train_megakernel import (
     flagship_render,
     flagship_train_grads,
@@ -299,7 +304,9 @@ def forward(
     `stratified` (they need the generator then, whatever the strategy).
 
     fused=True (eval and serving only: no gradient) runs the radiance pass
-    through `flagship_render` and needs `can_fuse_render(cfg)`."""
+    through `flagship_render` and needs `can_fuse_render(cfg)`; on CUDA
+    tensors with deterministic bins it also runs the proposal stage through
+    `proposal_bins` where `can_fuse_proposal(cfg)`."""
     n_rays = ray_origs.shape[0]
     device = ray_origs.device
     ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
@@ -320,15 +327,10 @@ def forward(
     rgb_coarse = None
     with annotate("render.bins"):
         if cfg.use_proposal:
-            tc_start, tc_end = stratified_bins(cfg.samples_per_ray_proposal)
-            dens_c, rgb_c_samples = _eval_model(
-                *_proposal_model(params, cfg), ray_origs, ray_dirs, tc_start, tc_end,
-                pixel_width, alpha_pos, alpha_dir, cfg.integration_strategy, pixel_width_sigma,
-            )
-            rgb_coarse, weights = render.render_rays_auto(
-                dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
-            tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
-                tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+            rgb_coarse, tf_start, tf_end = _proposal_stage(
+                params, cfg, ray_origs, ray_dirs, pixel_width, alpha_pos, alpha_dir,
+                pixel_width_sigma, gen, strategy, offset,
+                kernel=fused and not stratified and use_fused_proposal(cfg, device))
         elif cfg.use_occ:
             tf_start, tf_end = occgrid.sample_intervals(
                 params.occ, cfg.occ, ray_origs, ray_dirs, cfg.near, cfg.far,
@@ -338,6 +340,31 @@ def forward(
 
     return rgb_fine_pass(params, cfg, ray_origs, ray_dirs, tf_start, tf_end, pixel_width,
                          alpha_pos, alpha_dir, pixel_width_sigma, fused), rgb_coarse
+
+
+def _proposal_stage(params: BarfParams, cfg: BarfConfig, ray_origs, ray_dirs, pixel_width,
+                    alpha_pos, alpha_dir, pixel_width_sigma: float = 0.0, generator=None,
+                    strategy: str = "equidistant", offset: float = 0.0, kernel: bool = False):
+    """The coarse stage of a proposal config: (rgb_coarse (N, 3), fine
+    t_start, t_end (N, S)). With `kernel`, one launch of `proposal_bins` on
+    equidistant bins; else the proposal net on the `strategy` bins, then
+    compositing and the inverse-CDF resample, op by op."""
+    mdef, model = _proposal_model(params, cfg)
+    if kernel:
+        return proposal_bins(model, mdef.cfg, ray_origs, ray_dirs, cfg.near, cfg.far,
+                             cfg.samples_per_ray_proposal, cfg.samples_per_ray_radiance,
+                             alpha_pos, alpha_dir, cfg.density_scale)
+    tc_start, tc_end = sampling.sample_stratified(
+        generator, ray_origs.shape[0], cfg.samples_per_ray_proposal, cfg.near, cfg.far,
+        strategy, offset, device=ray_origs.device)
+    dens_c, rgb_c_samples = _eval_model(
+        mdef, model, ray_origs, ray_dirs, tc_start, tc_end, pixel_width, alpha_pos, alpha_dir,
+        cfg.integration_strategy, pixel_width_sigma)
+    rgb_coarse, weights = render.render_rays_auto(
+        dens_c, rgb_c_samples, tc_end - tc_start, density_scale=cfg.density_scale)
+    tf_start, tf_end = sampling.sample_pdf_weighted_intervals(
+        tc_start, tc_end, weights.detach(), cfg.samples_per_ray_radiance, cfg.far)
+    return rgb_coarse, tf_start, tf_end
 
 
 def rgb_fine_pass(params: BarfParams, cfg: BarfConfig, ray_origs, ray_dirs, t_start, t_end,
@@ -672,6 +699,26 @@ def use_fused_render(cfg: BarfConfig, device) -> bool:
     return can_fuse_render(cfg) and torch.device(device).type == "cuda"
 
 
+def can_fuse_proposal(cfg: BarfConfig) -> bool:
+    """True when the proposal kernel (`ops/proposal_bins.py`) covers this
+    config's coarse stage at serving: a proposal net of its own (not shared
+    with the radiance net) that `proposal_bins.kernel_fits` takes at the
+    config's bin counts, middle-point integration and the kernel's density
+    scale."""
+    mlp = cfg.proposal if cfg.proposal is not None else cfg.radiance
+    return (cfg.use_proposal and not cfg.share_proposal_net and not cfg.use_occ
+            and cfg.integration_strategy == "middle"
+            and cfg.density_scale == render.DENSITY_SCALE
+            and proposal_kernel_fits(mlp, cfg.samples_per_ray_proposal,
+                                     cfg.samples_per_ray_radiance))
+
+
+def use_fused_proposal(cfg: BarfConfig, device) -> bool:
+    """Serving's coarse stage goes through the proposal kernel when the
+    config allows it and the tensors live on a CUDA device."""
+    return can_fuse_proposal(cfg) and torch.device(device).type == "cuda"
+
+
 @torch.no_grad()
 def render_block_coarse(
     params: BarfParams,
@@ -687,38 +734,36 @@ def render_block_coarse(
     `block`-th ray: rays in raster order, each run of `block` rays shares
     the fine bins of its first ray's coarse stage (proposal net or occupancy
     grid, deterministic), and the radiance pass still evaluates every ray
-    (through the render kernel when `use_fused_render`). block=1 gives the
-    bits of `forward(..., stratified=False)` with the same pixel width."""
+    (through the render kernel when `use_fused_render`, and then the proposal
+    stage through its kernel when `can_fuse_proposal`). block=1 gives the
+    bits of `forward(..., stratified=False, fused=use_fused_render(...))`
+    with the same pixel width."""
     n_rays = ray_origs.shape[0]
     if n_rays % block:
         raise ValueError(f"block {block} must divide the rays ({n_rays})")
     ray_origs, ray_dirs = ray_origs.contiguous(), ray_dirs.contiguous()
-    rep_origs, rep_dirs = ray_origs[::block], ray_dirs[::block]
+    # the runs' first rays, copied out of their stride: the kernels take
+    # contiguous rays
+    rep_origs, rep_dirs = ray_origs[::block].contiguous(), ray_dirs[::block].contiguous()
     n_rep = rep_origs.shape[0]
     pw = torch.full((n_rep, 1), pixel_width, device=ray_origs.device)
+    fused = use_fused_render(cfg, ray_origs.device)
     with annotate("render.bins"):
         if cfg.use_occ:
             t_start, t_end = occgrid.sample_intervals(
                 params.occ, cfg.occ, rep_origs, rep_dirs, cfg.near, cfg.far,
                 cfg.samples_per_ray_radiance)
         elif cfg.use_proposal:
-            tc_start, tc_end = sampling.sample_stratified(
-                None, n_rep, cfg.samples_per_ray_proposal, cfg.near, cfg.far, "equidistant",
-                device=ray_origs.device)
-            dens_c, rgb_c = _eval_model(*_proposal_model(params, cfg), rep_origs, rep_dirs,
-                                        tc_start, tc_end, pw, alpha_pos, alpha_dir,
-                                        cfg.integration_strategy)
-            _, weights = render.render_rays_auto(dens_c, rgb_c, tc_end - tc_start,
-                                                 density_scale=cfg.density_scale)
-            t_start, t_end = sampling.sample_pdf_weighted_intervals(
-                tc_start, tc_end, weights, cfg.samples_per_ray_radiance, cfg.far)
+            _, t_start, t_end = _proposal_stage(
+                params, cfg, rep_origs, rep_dirs, pw, alpha_pos, alpha_dir,
+                kernel=fused and can_fuse_proposal(cfg))
         else:
             raise ValueError("render_block_coarse needs a coarse stage (proposal or occupancy)")
         t_start = sampling.broadcast_bins(t_start, block)
         t_end = sampling.broadcast_bins(t_end, block)
     return rgb_fine_pass(params, cfg, ray_origs, ray_dirs, t_start, t_end,
                          torch.full((n_rays, 1), pixel_width, device=ray_origs.device),
-                         alpha_pos, alpha_dir, fused=use_fused_render(cfg, ray_origs.device))
+                         alpha_pos, alpha_dir, fused=fused)
 
 
 def pose_error_metric(params: BarfParams, camera_origins_raw, camera_origins_noisy):

@@ -105,7 +105,7 @@ def test_kernel_sources_and_entry_points():
                                     "garf_render_gabor.cu", "garf_render_sarf.cu",
                                     "garf_train.cu", "garf_train_gauss.cu",
                                     "garf_train_gabor.cu", "garf_train_sarf.cu", "hashgrid.cu",
-                                    "fused_mlp.cu"}
+                                    "fused_mlp.cu", "proposal_bins.cu"}
     assert {f.name for f in headers} >= {"flagship_common.cuh", "garf_common.cuh",
                                          "train_common.cuh", "garf_train.cuh",
                                          "garf_render.cuh"}
@@ -113,7 +113,8 @@ def test_kernel_sources_and_entry_points():
                                           "netpu_render_bwd", "netpu_flagship_train",
                                           "netpu_garf_render", "netpu_garf_train",
                                           "netpu_hash_encode_fwd", "netpu_hash_encode_bwd",
-                                          "netpu_fused_mlp_fwd", "netpu_fused_mlp_bwd"}
+                                          "netpu_fused_mlp_fwd", "netpu_fused_mlp_bwd",
+                                          "netpu_proposal_bins"}
 
 
 class FakeCuda(torch.Tensor):
@@ -138,7 +139,8 @@ def kernel_calls():
     from nerf_experiments_tpu_torch.models import garf, nerf_mlp
     from nerf_experiments_tpu_torch.ops.garf_megakernel import (
         garf_radiance_render, garf_radiance_train_grads)
-    from nerf_experiments_tpu_torch.ops import fused_mlp, hashgrid, render_megakernel
+    from nerf_experiments_tpu_torch.ops import (
+        fused_mlp, hashgrid, proposal_bins, render_megakernel)
 
     n, s = 4, 8
     cfg = dataclasses.replace(mlp_cfg(8, 2), n_hidden=1)
@@ -147,6 +149,8 @@ def kernel_calls():
     gparams = garf.radiance_init(torch.Generator().manual_seed(0), gcfg)
     rays = lambda: (fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, s), fake_cuda(n, s))
     hcfg = hashgrid.HashGridConfig(dim=3, n_levels=2, table_size=64, resolution_max=32)
+    pcfg = dataclasses.replace(mlp_cfg(32, 1), compute_dtype=torch.bfloat16)
+    pparams = nerf_mlp.init(torch.Generator().manual_seed(0), pcfg)
     table = lambda: fake_cuda(2, 64, 2)
     return {
         "render_rays": lambda: render.render_rays_auto(fake_cuda(n, s), fake_cuda(n, s, 3),
@@ -173,13 +177,16 @@ def kernel_calls():
         "render_megakernel": lambda: render_megakernel.flagship_render(
             params, cfg, fake_cuda(n, 3), fake_cuda(n, 3), fake_cuda(n, 1), 1.0, 1.0, s, 2.0,
             6.0),
+        "proposal_bins": lambda: proposal_bins.proposal_bins(
+            pparams, pcfg, fake_cuda(n, 3), fake_cuda(n, 3), 2.0, 6.0, 16, s),
     }
 
 
 @pytest.mark.parametrize("entry", ["flagship_render", "flagship_train", "render_bwd",
                                    "render_full", "render_rays", "garf_render",
                                    "garf_train", "hash_encode", "hash_encode_bwd",
-                                   "fused_chain", "fused_mlp_bwd", "render_megakernel"])
+                                   "fused_chain", "fused_mlp_bwd", "render_megakernel",
+                                   "proposal_bins"])
 def test_cuda_tensor_without_nvcc_raises_the_nvcc_error(entry, tmp_path, monkeypatch):
     """A CUDA tensor goes to the kernel or the call raises: never a silent
     fall back to the plain version."""
